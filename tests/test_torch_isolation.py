@@ -1,0 +1,50 @@
+"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
+``chip_smoke.py`` imports JAX or the JAX package, and the package loads in
+a process where importing ``jax`` fails."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "from repro_torch import convert\n"
+        "from repro_torch.core import spjoin, verify\n"
+        "from repro_torch.kernels import ops\n"
+        "from repro_torch.data import synthetic\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -1,0 +1,153 @@
+"""The port's streaming verify engine against the JAX package's.
+
+Both engines get the same cells, membership and mapped coordinates (the
+reference's, carried over as numpy arrays), so the port must return
+byte-identical pairs and equal ``VerifyStats`` counters — the tile
+schedule, the windows, the bounding-box skips and the candidate pre-pass
+are the reference's decisions. The thresholds are chosen in the middle of a
+gap between pair distances, so no pair is within fp reach of δ.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mapping as jmap
+from repro.core import partition as jpart
+from repro.core import verify as jver
+from repro_torch.core import verify
+from repro_torch.data import synthetic
+
+COUNTERS = (
+    "n_verifications", "n_padded", "n_dispatched", "n_tiles", "n_cells", "n_hits",
+    "n_pruned", "n_tiles_pruned", "n_overflow_retries", "prune", "emit", "bucket_shapes",
+)
+
+
+def _gap_delta(x, y, metric, q):
+    """A δ near quantile q of the pair distances, mid-way in a gap of them."""
+    from repro.core import distances as jdist
+
+    d = np.sort(np.asarray(jdist.pairwise(jnp.asarray(x), jnp.asarray(y), metric)).ravel())
+    i = int(q * d.size)
+    window = d[max(i - 200, 0) : i + 200]
+    g = int(np.argmax(np.diff(window)))
+    return float((window[g] + window[g + 1]) / 2)
+
+
+def _setup(metric, cross, seed=0):
+    if cross:
+        r, s = synthetic.rs_mixture(300, 420, 12, n_clusters=4, spread=3.0, seed=seed)
+    else:
+        r = synthetic.mixture(500, 12, n_clusters=4, spread=3.0, seed=seed)
+        s = None
+    w = r if s is None else s
+    delta = _gap_delta(r, w, metric, 0.01)
+    rng = np.random.default_rng(seed)
+    anchors = r[rng.choice(len(r), 4, replace=False)]
+    smap = jmap.SpaceMap(jnp.asarray(anchors), metric)
+    xr = np.array(smap(jnp.asarray(r)))
+    xw = np.array(smap(jnp.asarray(w)))
+    plan = jpart.build_partition(xr[::5], 6, delta, strategy="iterative", seed=seed)
+    cells = np.asarray(jpart.assign_kernel(plan, jnp.asarray(xr)))
+    plan = jpart.tighten(plan, jnp.asarray(xr), jnp.asarray(cells))
+    member = np.asarray(jpart.whole_membership(plan, jnp.asarray(xw)))
+    return r, s, cells, member, xr, (None if s is None else xw), delta
+
+
+@pytest.mark.parametrize("metric", ("l1", "l2", "linf", "angular"))
+@pytest.mark.parametrize("prune", ("pivot", "none"))
+@pytest.mark.parametrize("cross", (False, True))
+def test_verify_pairs_identical_to_reference(metric, prune, cross):
+    r, s, cells, member, xr, xs, delta = _setup(metric, cross)
+    kw = dict(tile_v=64, tile_w=96, prune=prune)
+    want, wstats = jver.verify_pairs(
+        r, cells, member, delta, metric, config=jver.EngineConfig(backend="numpy", **kw),
+        data_w=s, coords=xr, coords_w=xs,
+    )
+    got, gstats = verify.verify_pairs(
+        torch.as_tensor(r), cells, member, delta, metric,
+        config=verify.EngineConfig(backend="auto", **kw),
+        data_w=None if s is None else torch.as_tensor(s),
+        coords=torch.as_tensor(xr), coords_w=None if xs is None else torch.as_tensor(xs),
+    )
+    assert got.dtype == np.int64 and want.dtype == np.int64
+    assert got.tobytes() == want.tobytes() and len(got) > 0
+    for k in COUNTERS:
+        assert getattr(gstats, k) == getattr(wstats, k), k
+    if prune == "pivot" and metric != "angular":
+        assert gstats.n_pruned > 0
+
+
+def test_prune_pivot_equals_none_and_default_tiles():
+    r, _, cells, member, xr, _, delta = _setup("l1", False, seed=3)
+    base, _ = verify.verify_pairs(torch.as_tensor(r), cells, member, delta, "l1")
+    pruned, st = verify.verify_pairs(
+        torch.as_tensor(r), cells, member, delta, "l1",
+        config=verify.EngineConfig(prune="pivot"), coords=torch.as_tensor(xr),
+    )
+    assert base.tobytes() == pruned.tobytes() and st.prune == "pivot"
+
+
+@pytest.mark.parametrize("cross", (False, True))
+@pytest.mark.parametrize("prune", ("pivot", "none"))
+def test_tile_hits_and_dedup_match_reference_verify_tile(cross, prune):
+    rng = np.random.default_rng(2)
+    xv = rng.normal(size=(40, 9)).astype(np.float32)
+    xw = rng.normal(size=(56, 9)).astype(np.float32)
+    pv = rng.normal(size=(40, 3)).astype(np.float32)
+    pw = rng.normal(size=(56, 3)).astype(np.float32)
+    vids = np.r_[rng.permutation(100)[:36], [-1] * 4].astype(np.int64)
+    wids = np.r_[rng.permutation(100)[:50], [-1] * 6].astype(np.int64)
+    wcells = rng.integers(0, 4, size=56).astype(np.int64)
+    delta = _gap_delta(xv, xw, "l1", 0.3)
+    kw = dict(delta=delta, metric="l1", cross=cross, prune=prune)
+    if prune == "pivot":
+        kw["delta_bound"] = 4.0
+    want = np.asarray(jver.verify_tile(
+        xv, xw, vids, wids, wcells, 2, backend="numpy",
+        pv=pv if prune == "pivot" else None, pw=pw if prune == "pivot" else None, **kw,
+    ))
+    t = torch.as_tensor
+    cross = kw.pop("cross")
+    hits = verify.tile_hits(
+        t(xv), t(xw), backend="torch",
+        pv=t(pv) if prune == "pivot" else None, pw=t(pw) if prune == "pivot" else None, **kw,
+    )
+    got = verify.apply_dedup(hits, t(vids), t(wids), t(wcells), 2, cross=cross).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
+
+
+def test_bucket_size_matches_reference():
+    for cap in (8, 1024, 4096):
+        for n in (1, 7, 8, 9, 33, 100, 513, 1000, 4095, 5000):
+            assert verify.bucket_size(n, cap) == jver.bucket_size(n, cap)
+
+
+def test_unported_modes_raise_and_capabilities_resolve():
+    assert verify.resolve_prune("pivot", "cosine", True) == "none"
+    assert verify.resolve_emit("compact", "angular") == "mask"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        verify.resolve_prune("window", "l1", True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        verify.resolve_emit("compact", "l2")
+    with pytest.raises(ValueError, match="requires the mapped coordinates"):
+        verify.resolve_prune("pivot", "l1", False)
+    x = torch.zeros((2, 3))
+    assert verify.resolve_engine_backend("cuda", "angular", x) == "torch"
+
+
+def test_prune_band_matches_reference():
+    rng = np.random.default_rng(0)
+    a = (rng.normal(size=(30, 7)) * 50).astype(np.float32)
+    b = (rng.normal(size=(20, 7)) * 80).astype(np.float32)
+    for metric in ("l1", "l2"):
+        want = jver.prune_band(0.5, metric, jnp.asarray(a), jnp.asarray(b))
+        assert verify.prune_band(0.5, metric, torch.as_tensor(a), torch.as_tensor(b)) == want
+
+
+def test_empty_cells_and_no_hits():
+    x = torch.zeros((0, 4))
+    pairs, st = verify.verify_pairs(x, np.zeros(0, np.int64), np.zeros((0, 3), bool), 1.0, "l1")
+    assert pairs.shape == (0, 2) and st.n_cells == 0
