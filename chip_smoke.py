@@ -1,7 +1,6 @@
 """Drive the PyTorch/CUDA port of SP-Join on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                  # full size: 1,000,000 x 128 rows
-    python3 chip_smoke.py --n-rows 200000  # a smaller main path
+    python3 chip_smoke.py    # one card; takes no arguments
 
 Phases, in order; any failure raises and exits non-zero (nothing is caught):
   1. environment — card name and power limit, torch/CUDA versions, TF32 off;
@@ -11,24 +10,26 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    at ragged shapes and at the main path's shapes, with times
                    (kernel, plain, library yardstick) and the roofline bound;
   4. main path   — the default-config l1 self-join over a 1M x 128 clustered
-                   float32 set (the shape of the SIFT1M base set), launch
-                   counts reset before and read after; spot-checked against
-                   brute force for a sample of rows; then one 50,000-row join
-                   under torch.profiler (device busy share, time by kernel);
+                   float32 set (the shape of the SIFT1M base set; halved, on a
+                   "reduced" line, only if a probe predicts it will not fit
+                   its share of the time limit), launch counts reset before
+                   and read after; spot-checked against brute force for a
+                   sample of rows; the map-assign kernel checked and timed in
+                   both of its main-path modes at the main path's shapes;
+                   then one 50,000-row join under torch.profiler (device busy
+                   share, time by kernel);
   5. exactness   — at N = 50,000 the join (l1, l2; prune pivot and none; one
                    R x S) equals a brute-force join done in row chunks with
                    the plain version on the card: byte for byte, or differing
                    only in pairs that straddle delta between the kernel's and
                    the plain fp32 distance (l2's expansion form), each within
-                   the stated tolerance of the float64 distance.
+                   the stated per-pair tolerance (``dist_tol``).
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import math
 import os
 import subprocess
 import sys
@@ -47,6 +48,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
+N_ROWS = 1_000_000  # the main path's rows before any "reduced" cut
 MAIN_SHARE_S = 420.0  # the main path's share of the time limit
 BRUTE_CHUNK = 2048  # spjoin.brute_force_pairs' default row chunk
 T_START = time.perf_counter()
@@ -105,34 +107,62 @@ def pairdist64(x: torch.Tensor, y: torch.Tensor, metric: str) -> torch.Tensor:
     return out
 
 
-def dist_tol(x: torch.Tensor, y: torch.Tensor, metric: str, d_max: float) -> float:
-    """Stated tolerance of a kernel distance against the plain one: both
-    are fp32 with different summation orders. l1: 4·m·eps·max D; linf:
-    exact; dot/cosine: 4·m·eps·max|x|·max|y|; l2: the sqrt of the
-    expansion's error 4·(2m+4)·eps·(max|x|² + max|y|²)."""
-    m = x.shape[1]
+def dist_tol(
+    metric: str, m: int, nx: torch.Tensor, ny: torch.Tensor, d64: torch.Tensor,
+    d_k: torch.Tensor, d_p: torch.Tensor,
+) -> torch.Tensor:
+    """Stated per-pair tolerance of |kernel − plain| for one distance: two
+    fp32 evaluations of m-term sums in different orders, each within
+    γ = (m+2)·eps of the exact sum's magnitude (any summation order), so
+    g = 2·(m+2)·eps. ``nx``/``ny`` are the rows' float64 norms, ``d64`` the
+    float64 distance, ``d_k``/``d_p`` the kernel's and the plain distance,
+    all broadcast per pair.
+      linf:   0 (the same roundings, a max is exact);
+      l1:     g·D;
+      cosine: g (pre-normalised rows);
+      dot:    g·|x|·|y|;
+      l2:     the expansion ‖x‖²+‖y‖²−2x·y is within E = g·(|x|+|y|)² in D²,
+              so in D within E / max(D_k + D_p, √E).
+    An fp32 kernel whose terms carried TF32 rounding (2¹² × eps) would break
+    these at m = 128."""
+    g = 2.0 * (m + 2) * EPS32
     if metric == "linf":
-        return 0.0
+        return torch.zeros_like(d64)
     if metric == "l1":
-        return 4 * m * EPS32 * d_max
-    xn = float(x.norm(dim=1).max())
-    yn = float(y.norm(dim=1).max())
-    if metric in ("dot", "cosine"):
-        return 4 * m * EPS32 * (1.0 if metric == "cosine" else xn * yn)
-    return math.sqrt(4 * (2 * m + 4) * EPS32 * (xn * xn + yn * yn))
+        return g * d64.abs()
+    if metric == "cosine":
+        return torch.full_like(d64, g)
+    if metric == "dot":
+        return g * nx * ny + torch.zeros_like(d64)
+    e = g * (nx + ny) ** 2 + torch.zeros_like(d64)
+    return e / torch.maximum(d_k.double() + d_p.double(), e.sqrt())
+
+
+def pair_tol(x: torch.Tensor, y: torch.Tensor, metric: str, d64, d_k, d_p) -> torch.Tensor:
+    """:func:`dist_tol` for the (a, b) matrix of rows ``x`` against ``y``."""
+    nx = x.double().norm(dim=1)[:, None]
+    ny = y.double().norm(dim=1)[None, :]
+    return dist_tol(metric, x.shape[1], nx, ny, d64, d_k, d_p)
 
 
 def mask_mismatch(
-    got: torch.Tensor, want: torch.Tensor, d64: torch.Tensor, d_plain: torch.Tensor,
-    delta: float, err: float,
+    got: torch.Tensor, want: torch.Tensor, d_plain: torch.Tensor, delta: float,
+    tol: torch.Tensor,
 ) -> int:
-    """Mask disagreements outside the borderline band: pairs whose float64
-    distance is within 1e-5·max(1, δ) of δ, or whose plain fp32 distance is
-    within the measured kernel-vs-plain error ``err`` of δ (only those can
-    land on the other side of δ)."""
-    band = (d64 - delta).abs() <= 1e-5 * max(1.0, abs(delta))
-    band |= (d_plain - delta).abs() <= err
+    """Mask disagreements outside the borderline band: only a pair whose
+    plain fp32 distance is within its stated tolerance ``tol`` of δ can land
+    on the other side of δ in the kernel."""
+    band = (d_plain.double() - delta).abs() <= tol
     return int(((got != want) & ~band).sum())
+
+
+def count_one_launch(name: str, fn):
+    """Call ``fn`` and check that its wrapper added exactly one launch to
+    the kernel's count."""
+    before = ops.launch_counts()[name]
+    out = fn()
+    assert ops.launch_counts()[name] == before + 1, (name, before, ops.launch_counts())
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -183,19 +213,21 @@ def phase_kernels() -> dict:
         for a, b, m in ((1000, 3001, 100), (77, 1030, 33), (1024, 4096, 128)):
             x = torch.randn((a, m), generator=gen, device="cuda") * 4 + 1
             y = torch.randn((b, m), generator=gen, device="cuda") * 4 + 1
-            got = ops.pairdist(x, y, metric, backend="cuda")
+            got = count_one_launch("pairdist", lambda: ops.pairdist(x, y, metric, backend="cuda"))
             want = ref.pairdist(x, y, metric)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            tol = dist_tol(x, y, metric, float(want.abs().max()))
             d64 = pairdist64(x, y, metric)
+            tol = pair_tol(x, y, metric, d64, got, want)
+            gap = (got.double() - want.double()).abs()
+            err, over = float(gap.max()), int((gap > tol).sum())
             delta = float(d64.flatten()[:: max(1, d64.numel() // 4096)].median())
             mm = mask_mismatch(
-                ops.pairdist_mask(x, y, delta, metric, backend="cuda"),
-                ref.pairdist_mask(x, y, delta, metric), d64, want, delta, err,
+                count_one_launch("pairdist", lambda: ops.pairdist_mask(x, y, delta, metric, backend="cuda")),
+                ref.pairdist_mask(x, y, delta, metric), want, delta, tol,
             )
-            log(f"pairdist {metric:6s} {a}x{b}x{m}: max_abs_err {err:.3e} (tol {tol:.3e}) mask mismatches {mm}")
-            assert err <= tol, (metric, a, b, m, err, tol)
+            log(f"pairdist {metric:6s} {a}x{b}x{m}: max_abs_err {err:.3e} "
+                f"(max err/tol {float((gap / tol.clamp_min(1e-300)).max()):.3e}, pairs over tol {over}) "
+                f"mask mismatches {mm}")
+            assert over == 0, (metric, a, b, m, err, over)
             assert mm == 0, (metric, a, b, m, mm)
             if metric == "l1" and (a, b, m) == (1024, 4096, 128):
                 worst = err
@@ -232,11 +264,12 @@ def phase_kernels() -> dict:
             bound = ref.bound_mask(px, py, delta, db)
             tiles = torch.nn.functional.pad(bound, (0, (-b) % 64, 0, (-a) % 64))
             live = tiles.reshape(-(-a // 64), 64, -(-b // 64), 64).any(3).any(1)
-            got = ops.pairdist_mask_filtered(x, y, px, py, delta, metric, delta_bound=db, backend="cuda")
+            got = count_one_launch("pairdist_filtered", lambda: ops.pairdist_mask_filtered(
+                x, y, px, py, delta, metric, delta_bound=db, backend="cuda"))
             want = ref.pairdist_mask_filtered(x, y, px, py, delta, metric, db)
             d_plain = ref.pairdist(x, y, metric)
-            err = float((ops.pairdist(x, y, metric, backend="cuda") - d_plain).abs().max())
-            mm = mask_mismatch(got, want, d64, d_plain, delta, err)
+            tol = pair_tol(x, y, metric, d64, ops.pairdist(x, y, metric, backend="cuda"), d_plain)
+            mm = mask_mismatch(got, want, d_plain, delta, tol)
             # The output is an int8 mask: its max |kernel − plain| off the band.
             worst = max(worst, float(mm > 0))
             log(f"pairdist_filtered {metric:4s} {a}x{b}x{m}: blocks live {int(live.sum())} skipped {int((~live).sum())} mismatches {mm} hits {int(want.sum())}")
@@ -260,7 +293,7 @@ def phase_kernels() -> dict:
     log(f"pairdist_filtered l1 {a}x{b}x{m} (surviving pairs {surv}): kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
 
     # --- map-assign, both modes, p = 70 (three words, bit 31 in play).
-    worst = 0.0
+    worst, any_top = 0.0, False
     for metric in ref.METRICS:
         n, m, na, p = 5003, 128, 8, 70
         x = _mixture(n, m, 7)
@@ -268,24 +301,26 @@ def phase_kernels() -> dict:
         piv = ref.pairdist(x[:2000], anchors, metric).cpu().numpy()
         plan = partition.build_partition(piv, p, 0.05, strategy="iterative", device="cuda")
         boxes = (plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi)
-        xm, cells, bits = ops.map_assign(x, anchors, *boxes, metric, backend="cuda")
+        xm, cells, bits = count_one_launch(
+            "map_assign", lambda: ops.map_assign(x, anchors, *boxes, metric, backend="cuda"))
         xm_p, cells_p, bits_p = ops.map_assign(x, anchors, *boxes, metric, backend="torch")
-        err = float((xm - xm_p).abs().max())
-        tol = dist_tol(x, anchors, metric, float(xm_p.abs().max()))
-        # Rows within tol of a box edge may land on either side.
-        near = torch.zeros(n, dtype=torch.bool, device="cuda")
-        for edge in boxes:
-            near |= ((xm_p[:, None, :] - edge[None]).abs() <= max(2 * err, 1e-6)).any(-1).any(-1)
-        cm = int(((cells != cells_p) & ~near).sum())
-        bm = int(((bits != bits_p).any(1) & ~near).sum())
-        c2, b2 = ops.assign_membership(xm_p, *boxes, backend="cuda")
-        c3, b3 = ops.assign_membership(xm_p, *boxes, backend="torch")
-        exact = bool(torch.equal(c2, c3) and torch.equal(b2, b3))
-        top = bool((b3 < 0).any())
-        log(f"map_assign {metric:6s} n={n} p={p}: xm max_abs_err {err:.3e} (tol {tol:.3e}) cell/bit mismatches off-edge {cm}/{bm} (near-edge rows {int(near.sum())}); assign-only exact {exact} (bit 31 set {top})")
-        assert err <= tol and cm == 0 and bm == 0 and exact
+        err, over, cm, bm, near = check_map_assign(
+            x, anchors, boxes, metric, (xm, cells, bits), (xm_p, cells_p, bits_p))
+        exact = True
+        for want in ops.WANTS:  # assign-only, each output selection
+            c2, b2 = count_one_launch(
+                "map_assign", lambda: ops.assign_membership(xm_p, *boxes, backend="cuda", want=want))
+            c3, b3 = ops.assign_membership(xm_p, *boxes, backend="torch", want=want)
+            exact &= bool(torch.equal(c2, c3) and torch.equal(b2, b3))
+        top = bool((bits_p < 0).any())
+        log(f"map_assign {metric:6s} n={n} p={p}: xm max_abs_err {err:.3e} (coords over tol {over}) "
+            f"cell/bit mismatches off-edge {cm}/{bm} (near-edge rows {near}); "
+            f"assign-only exact for want {ops.WANTS}: {exact} (bit 31 set {top})")
+        assert over == 0 and cm == 0 and bm == 0 and exact
+        any_top |= top
         if metric == "l1":
             worst = err
+    assert any_top, "no membership word had bit 31 set"
     report["map_assign"] = dict(
         name="map_assign", route="cuda", source="src/repro_torch/kernels/csrc/mapassign.cu",
         replaces="src/repro/kernels/mapassign.py:133", max_abs_err=worst, library_ms=None,
@@ -293,18 +328,72 @@ def phase_kernels() -> dict:
     return report
 
 
-def time_map_assign(report: dict, x: torch.Tensor, plan_args: tuple) -> None:
-    """Times of the map-assign kernel at the main path's shape (all rows,
-    cells only, as the main path launches it)."""
-    anchors, boxes = plan_args
+def check_map_assign(x, anchors, boxes, metric, got, want) -> tuple[float, int, int, int, int]:
+    """The metric mode of map-assign against its plain version: coordinates
+    within :func:`dist_tol`, cells and membership words equal on every row
+    whose plain coordinates are farther than their tolerance from every box
+    edge (a row nearer may land on either side). Returns (max |xm error|,
+    coordinates over tolerance, cell and bit mismatches off the edges,
+    near-edge rows)."""
+    xm, cells, bits = got
+    xm_p, cells_p, bits_p = want
+    tol = pair_tol(x, anchors, metric, pairdist64(x, anchors, metric), xm, xm_p)
+    gap = (xm.double() - xm_p.double()).abs()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for i in range(0, x.shape[0], 1 << 16):
+        xs, ts = xm_p[i : i + (1 << 16), None, :].double(), tol[i : i + (1 << 16), None, :]
+        for edge in boxes:
+            near[i : i + (1 << 16)] |= ((xs - edge[None].double()).abs() <= ts).any(-1).any(-1)
+    cm = int(((cells != cells_p) & ~near).sum())
+    bm = int(((bits != bits_p).any(1) & ~near).sum())
+    return float(gap.max()), int((gap > tol).sum()), cm, bm, int(near.sum())
+
+
+def check_and_time_map_assign(report: dict, x: torch.Tensor, cfg) -> None:
+    """The map-assign kernel at the main path's shapes, in both of the
+    modes the main path launches it: the metric mode over all rows with the
+    plan's boxes (``want="cells"``), then the assign-only mode over the
+    mapped rows with the tightened plan (``want="member"``). Each is checked
+    against its plain version on the same inputs (coordinates within
+    tolerance and cells equal off box edges; membership exact) and timed;
+    the report row carries the sum of the two launches."""
+    anchors, plan = main_path_plan(x, cfg)
+    boxes = (plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi)
     n, m = x.shape
-    na, p = anchors.shape[0], boxes[0].shape[0]
-    ms = cuda_ms(lambda: ops.map_assign(x, anchors, *boxes, "l1", backend="cuda", want="cells"), reps=5)
-    plain = cuda_ms(lambda: ops.map_assign(x, anchors, *boxes, "l1", backend="torch", want="cells"), reps=2)
-    n_bytes = 4 * (n * m + na * m + 4 * p * na + n * (na + 1 + -(-p // 32)))
-    bms, by = bound_ms(n_bytes, 2.0 * n * na * m + 2.0 * n * p * na)
-    report["map_assign"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-    log(f"map_assign l1 n={n} m={m} dims={na} p={p}: kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
+    na, p = anchors.shape[0], plan.p
+    words = -(-p // ref.MEMBER_WORD)
+
+    def metric_mode(backend):
+        return ops.map_assign(x, anchors, *boxes, cfg.metric, backend=backend, want="cells")
+
+    got, want = metric_mode("cuda"), metric_mode("torch")
+    err, over, cm, bm, near = check_map_assign(x, anchors, boxes, cfg.metric, got, want)
+    log(f"map_assign {cfg.metric} n={n} m={m} dims={na} p={p} want=cells: xm max_abs_err {err:.3e} "
+        f"(coords over tol {over}) cell mismatches off-edge {cm} (near-edge rows {near})")
+    assert over == 0 and cm == 0 and bm == 0
+    tight = partition.tighten(plan, want[0], want[1])
+    tboxes = (tight.kernel_lo, tight.kernel_hi, tight.whole_lo, tight.whole_hi)
+
+    def assign_mode(backend):
+        return ops.assign_membership(want[0], *tboxes, backend=backend, want="member")
+
+    (c_k, b_k), (c_p, b_p) = assign_mode("cuda"), assign_mode("torch")
+    exact = bool(torch.equal(c_k, c_p) and torch.equal(b_k, b_p))
+    log(f"map_assign assign-only n={n} dims={na} p={p} want=member (tightened plan): "
+        f"exact {exact}, rows in >1 partition {int((ops.unpack_membership(b_p, p).sum(1) > 1).sum())}")
+    assert exact
+    ms_m = cuda_ms(lambda: metric_mode("cuda"), reps=5)
+    ms_a = cuda_ms(lambda: assign_mode("cuda"), reps=5)
+    plain_m = cuda_ms(lambda: metric_mode("torch"), reps=2)
+    plain_a = cuda_ms(lambda: assign_mode("torch"), reps=2)
+    # Bytes: each input read once, each wanted output written once.
+    n_bytes = 4 * (n * m + na * m + 4 * p * na + n * (na + 1))  # metric mode
+    n_bytes += 4 * (n * na + 4 * p * na + n * words)  # assign-only mode
+    n_ops = 2.0 * n * na * m + 2.0 * n * p * na + 2.0 * n * p * na
+    bms, by = bound_ms(n_bytes, n_ops)
+    report["map_assign"].update(ms=ms_m + ms_a, plain_ms=plain_m + plain_a, bound_ms=bms, bound_by=by)
+    log(f"map_assign main-path pair of launches: kernel {ms_m:.4f} + {ms_a:.4f} ms, "
+        f"plain {plain_m:.4f} + {plain_a:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 def pick_delta(x: torch.Tensor, metric: str, mean_neighbours: float, y=None, sample: int = 2048) -> float:
@@ -361,13 +450,16 @@ def check_exact(got: np.ndarray, truth: np.ndarray, x, y, metric: str, delta: fl
         pd[sel] = block[i[sel] - c * BRUTE_CHUNK, j[sel]]
     d64 = (x[i].double() - y[j].double())
     d64 = d64.abs().sum(1) if metric == "l1" else d64.pow(2).sum(1).sqrt()
-    tol = dist_tol(x, y, metric, float(d64.max()))
+    nx, ny = x[i].double().norm(dim=1), y[j].double().norm(dim=1)
+    tol = dist_tol(metric, x.shape[1], nx, ny, d64, kd, pd)
     in_join = torch.tensor([tuple(p) in g for p in diff.tolist()], device="cuda")
     ok = (in_join == (kd <= delta)) & (~in_join == (pd <= delta))
+    ok &= (kd.double() - pd.double()).abs() <= tol
     ok &= ((kd.double() - d64).abs() <= tol) & ((pd.double() - d64).abs() <= tol)
     assert bool(ok.all()), "join pairs differ from brute force beyond fp32 straddles"
     return (f"identical but {len(diff)} pairs that straddle delta between kernel and plain fp32 "
-            f"(max |kernel - plain| {float((kd - pd).abs().max()):.3e}, tol {tol:.3e})")
+            f"(max |kernel - plain| {float((kd - pd).abs().max()):.3e}, "
+            f"largest share of its tolerance {float(((kd.double() - pd.double()).abs() / tol).max()):.3f})")
 
 
 def run_join(x, cfg, **kw):
@@ -378,14 +470,14 @@ def run_join(x, cfg, **kw):
     return res, time.perf_counter() - t0
 
 
-def phase_main_path(report: dict, n_rows: int) -> tuple[dict, int]:
+def phase_main_path(report: dict) -> tuple[dict, int]:
     log("== phase 4: main path (default JoinConfig, l1 self-join)")
     m = 128
     # Probe at n/16, run twice so the timed run is warm (the first pays the
     # one-time costs: kernel loads, allocator growth). The verify work grows
     # ~quadratically, so predict the full run and halve N until it fits
     # the phase's share.
-    n = n_rows
+    n = N_ROWS
     probe_n = max(n // 16, 20000)
     xp = _mixture(probe_n, m, 11)
     dp = pick_delta(xp, "l1", 10.0 * probe_n / n)
@@ -442,19 +534,20 @@ def phase_main_path(report: dict, n_rows: int) -> tuple[dict, int]:
         d64 = (x[rows[diff[:, 0]]].double() - x[diff[:, 1]].double()).abs().sum(1)
         assert bool(((d64 - delta).abs() <= 1e-5 * max(1.0, delta)).all()), "join missed pairs"
     log(f"spot check: 256 rows, {int(hit.sum())} partners, {diff.shape[0]} borderline differences")
-    time_map_assign(report, x, (res_anchors_and_boxes(x, cfg)))
+    check_and_time_map_assign(report, x, cfg)
     return counts, n
 
 
-def res_anchors_and_boxes(x: torch.Tensor, cfg) -> tuple:
-    """The anchors and kernel/whole boxes of a plan for ``x`` under ``cfg``
-    (the shapes the main path's map-assign launch sees)."""
+def main_path_plan(x: torch.Tensor, cfg) -> tuple:
+    """The anchors and (untightened) plan that ``spjoin.join(x, cfg)``
+    builds: the same seeded generators, four shards and control plane."""
     gen = torch.Generator().manual_seed(cfg.seed)
+    gen_anchor = torch.Generator().manual_seed(cfg.seed + spjoin._ANCHOR_SEED_OFFSET)
     shards = list(torch.tensor_split(x, 4))
     stats = spjoin.fit_node_stats(shards, cfg.t_cells)
     pivots = spjoin.draw_pivots(gen, shards, stats, cfg)
-    plan, smap = spjoin.build_plan(gen, pivots, cfg)
-    return smap.anchors, (plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi)
+    plan, smap = spjoin.build_plan(gen_anchor, pivots, cfg)
+    return smap.anchors, plan
 
 
 def profile_join(n: int) -> None:
@@ -510,16 +603,13 @@ def phase_exactness() -> dict:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--n-rows", type=int, default=1_000_000, help="main path rows (default 1,000,000)")
-    args = ap.parse_args()
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
     log(env["smi"])
     phase_build()
     report = phase_kernels()
     log(f"[{elapsed():.1f}s] kernels checked")
-    main_counts, n = phase_main_path(report, args.n_rows)
+    main_counts, n = phase_main_path(report)
     log(f"[{elapsed():.1f}s] main path done at N={n}")
     profile_join(50_000)
     log(f"[{elapsed():.1f}s] profile done")

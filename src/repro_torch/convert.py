@@ -5,7 +5,8 @@ packages draw different pivots, anchors and plans. These plain functions
 turn the reference's artifacts, given as numpy arrays (anything
 ``np.asarray`` takes), into the port's objects, so both packages compute
 from the same control plane and each stage can be held to exact parity.
-Nothing here imports the JAX package.
+Like the rest of the port they put their tensors on the card unless the
+caller passes ``device="cpu"``. Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -13,27 +14,28 @@ import numpy as np
 import torch
 
 from repro_torch.core import expfam, mapping, partition, sampling
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
 
 def _t(a, device) -> Tensor:
-    return torch.as_tensor(np.array(a, np.float32), device=device)
+    return torch.as_tensor(np.array(a, np.float32), device=ops.resolve_device(device))
 
 
-def pivots(pivots_np, device: torch.device | str = "cpu") -> Tensor:
+def pivots(pivots_np, device: torch.device | str = "cuda") -> Tensor:
     """(k, m) pivots as a float32 tensor."""
     return _t(pivots_np, device)
 
 
-def space_map(anchors, metric: str, device: torch.device | str = "cpu") -> mapping.SpaceMap:
+def space_map(anchors, metric: str, device: torch.device | str = "cuda") -> mapping.SpaceMap:
     """A ``SpaceMap`` from the reference's anchors (n, m) and metric."""
     return mapping.SpaceMap(_t(anchors, device), metric)
 
 
 def partition_plan(
     kernel_lo, kernel_hi, whole_lo, whole_hi, delta: float,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> partition.PartitionPlan:
     """A ``PartitionPlan`` from the reference's (p, n) box edges and δ."""
     return partition.PartitionPlan(
@@ -47,7 +49,7 @@ def partition_plan(
 
 def node_stats(
     family: str, a, b, confidence: float, count: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> sampling.NodeStats:
     """One node's broadcast statistics ⟨family, η = (a, b), c⁰, N⟩."""
     return sampling.NodeStats(

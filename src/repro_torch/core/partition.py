@@ -134,14 +134,16 @@ def build_partition(
     strategy: str = "learning",
     labels: np.ndarray | None = None,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> PartitionPlan:
     """Recursively split the mapped pivots into p leaf boxes.
 
     pivots_mapped: (k, n) target-space pivot coordinates (numpy).
     labels: required for strategy="learning" (origin-space cluster labels).
-    The plan's boxes are float32 tensors on ``device``.
+    The plan's boxes are float32 tensors on ``device`` (the card unless the
+    caller asks for the CPU).
     """
+    device = kops.resolve_device(device)
     pivots_mapped = np.asarray(pivots_mapped, np.float64)
     k, n = pivots_mapped.shape
     if strategy == "learning" and labels is None:

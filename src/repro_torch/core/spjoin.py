@@ -92,17 +92,6 @@ class JoinResult:
         return int(self.pairs.shape[0])
 
 
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The device a join runs on; CUDA must be present when asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "join(device='cuda') needs a CUDA device; pass device='cpu' for the "
-            "plain PyTorch path"
-        )
-    return dev
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -195,7 +184,7 @@ def join(
     ``data`` / ``s``: the full (N, m) array (numpy or tensor; split into
     ``n_nodes`` simulated nodes) or an explicit list of per-node shards.
     """
-    dev = resolve_device(device)
+    dev = kops.resolve_device(device)
     kops.strict_fp32()
     if s is data:
         s = None  # R = S aliasing: the canonical semantics is the self-join
@@ -326,16 +315,16 @@ def brute_force_pairs(
     metric: str = "l1",
     s=None,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     chunk: int = 2048,
 ) -> np.ndarray:
     """Ground-truth pair list (quadratic), in row chunks with the plain
-    distance on ``device``.
+    distance on ``device`` (the card unless the caller asks for the CPU).
 
     ``s=None``: self-join pairs (i, j), i < j. With ``s``: cross R×S pairs,
     column 0 indexing ``data`` (R), column 1 indexing ``s`` (S). Sorted
     lexicographically, int64."""
-    dev = resolve_device(device)
+    dev = kops.resolve_device(device)
     x = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
     y = x if s is None else torch.as_tensor(s).to(device=dev, dtype=torch.float32)
     out = []

@@ -36,6 +36,18 @@ def strict_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on; CUDA must be present when asked
+    for (the entry points default to "cuda")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA device; pass device='cpu' for the "
+            "plain PyTorch path"
+        )
+    return dev
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {**_pairdist.LAUNCHES, **_mapassign.LAUNCHES}

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro.core import spjoin as jspjoin
-from repro_torch.core import spjoin
+from repro_torch import convert
+from repro_torch.core import partition, spjoin
 from repro_torch.data import synthetic
 
 DELTA = {"l1": 3.0, "l2": 1.2, "linf": 0.6}
@@ -54,7 +55,7 @@ def test_join_matches_reference(metric, prune, cross):
     want = jspjoin.join(r, jspjoin.JoinConfig(backend="numpy", **kw), s=s)
     w = r if s is None else s
     _assert_same_pairs(got.pairs, want.pairs, r, w, kw["delta"], metric)
-    truth = spjoin.brute_force_pairs(r, kw["delta"], metric, s=s)
+    truth = spjoin.brute_force_pairs(r, kw["delta"], metric, s=s, device="cpu")
     _assert_same_pairs(got.pairs, truth, r, w, kw["delta"], metric)
     assert got.n_pairs > 0
     vs = got.verify_stats
@@ -79,7 +80,7 @@ def test_join_options_exact(overrides):
     kw = dict(delta=3.0, metric="l1", k=96, p=6, n_dims=4)
     kw.update(overrides)
     got = spjoin.join(r, spjoin.JoinConfig(**kw), device="cpu")
-    truth = spjoin.brute_force_pairs(r, kw["delta"], kw["metric"])
+    truth = spjoin.brute_force_pairs(r, kw["delta"], kw["metric"], device="cpu")
     if kw["metric"] == "angular":
         assert got.pairs.tobytes() == truth.tobytes()
     else:
@@ -99,3 +100,23 @@ def test_join_needs_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spjoin.join(np.zeros((4, 2), np.float32), spjoin.JoinConfig(delta=1.0))
+
+
+@pytest.mark.parametrize(
+    "entry",
+    (
+        lambda: spjoin.brute_force_pairs(np.zeros((4, 2), np.float32), 1.0),
+        lambda: partition.build_partition(np.zeros((8, 2)), 2, 0.1, strategy="iterative"),
+        lambda: convert.pivots(np.zeros((4, 2))),
+        lambda: convert.space_map(np.zeros((2, 2)), "l1"),
+        lambda: convert.partition_plan(*[np.zeros((2, 2))] * 4, 0.1),
+        lambda: convert.node_stats("gaussian", np.zeros(2), np.ones(2), 0.5, 4),
+    ),
+    ids=("brute_force_pairs", "build_partition", "pivots", "space_map", "partition_plan", "node_stats"),
+)
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Like ``join``, the other public entry points run on the card unless
+    the caller passes ``device="cpu"``; without CUDA they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()

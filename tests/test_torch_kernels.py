@@ -7,7 +7,7 @@ Tolerances: distances rtol = atol = 1e-5 (both fp32, different summation
 orders); masks exact except pairs whose float64 distance lies within
 1e-5·max(1, δ) of δ; cells and bits exact on the same mapped coordinates.
 The CUDA kernels themselves are held against the plain versions on a card
-in ``test_torch_cuda.py``.
+by ``chip_smoke.py`` (phase 3 and at the main path's shapes).
 """
 import numpy as np
 import pytest

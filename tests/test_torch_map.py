@@ -41,7 +41,7 @@ def _reference_plan(metric, p=12, n_dims=5, delta=0.8, strategy="learning"):
 
 def _plan(plan):
     return convert.partition_plan(
-        plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi, plan.delta
+        plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi, plan.delta, device="cpu"
     )
 
 
@@ -56,7 +56,7 @@ def _near_edge(xm, plan, tol=1e-5):
 def test_map_phase_matches_reference(metric):
     data, _, plan, smap, _ = _reference_plan(metric)
     tplan = _plan(plan)
-    tsmap = convert.space_map(smap.anchors, smap.metric)
+    tsmap = convert.space_map(smap.anchors, smap.metric, device="cpu")
     boxes = (plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi)
     want_xm, want_c, want_b = (
         np.asarray(v) for v in jops.map_assign(data, smap.anchors, *boxes, metric, backend="numpy")
@@ -106,7 +106,9 @@ def test_partition_tree_matches_reference(strategy):
     labels = jpart.single_linkage_labels(d, 2 * cfg.p)
     np.testing.assert_array_equal(partition.single_linkage_labels(d, 2 * cfg.p), labels)
     want = jpart.build_partition(piv_mapped, cfg.p, cfg.delta, strategy=strategy, labels=labels, seed=3)
-    got = partition.build_partition(piv_mapped, cfg.p, cfg.delta, strategy=strategy, labels=labels, seed=3)
+    got = partition.build_partition(
+        piv_mapped, cfg.p, cfg.delta, strategy=strategy, labels=labels, seed=3, device="cpu"
+    )
     for a, b in zip(
         (got.kernel_lo, got.kernel_hi, got.whole_lo, got.whole_hi),
         (want.kernel_lo, want.kernel_hi, want.whole_lo, want.whole_hi),
@@ -121,7 +123,7 @@ def test_partition_tree_matches_reference(strategy):
 @pytest.mark.parametrize("method", ("fft", "random"))
 def test_select_anchors_picks_distinct_pivots(method):
     _, pivots, _, _, _ = _reference_plan("l1")
-    tp = convert.pivots(pivots)
+    tp = convert.pivots(pivots, device="cpu")
     smap = mapping.select_anchors(torch.Generator().manual_seed(0), tp, 6, "l1", method)
     anchors = smap.anchors.numpy()
     rows = {r.tobytes() for r in pivots}

@@ -122,7 +122,7 @@ def test_generative_sample_from_reference_node_stats():
         par, res = jgof.fit_best_family(jnp.asarray(s))
         ref_stats.append(jsamp.NodeStats(par.family, par, float(res.confidence), len(s)))
     stats = [
-        convert.node_stats(s.family, s.params.a, s.params.b, s.confidence, s.count)
+        convert.node_stats(s.family, s.params.a, s.params.b, s.confidence, s.count, device="cpu")
         for s in ref_stats
     ]
     assert [s.family for s in stats] == [s.family for s in ref_stats]
