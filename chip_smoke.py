@@ -5,27 +5,40 @@
 Phases, in order; any failure raises and exits non-zero (nothing is caught):
   1. environment — card name and power limit, torch/CUDA versions, TF32 off;
   2. build       — every CUDA kernel compiled from the sources in the
-                   checkout with nvcc for sm_90a (timed);
+                   checkout with nvcc for sm_90a, in parallel (timed);
   3. kernels     — each kernel against its plain PyTorch version on the card
                    at ragged shapes and at the main path's shapes, with times
                    (kernel, plain, library yardstick) and the roofline bound;
-  4. main path   — the default-config l1 self-join over a 1M x 128 clustered
-                   float32 set (the shape of the SIFT1M base set; halved, on a
-                   "reduced" line, only if a probe predicts it will not fit
-                   its share of the time limit), launch counts reset before
-                   and read after; spot-checked against brute force for a
-                   sample of rows; the map-assign kernel checked and timed in
-                   both of its main-path modes at the main path's shapes;
-                   then one 50,000-row join under torch.profiler (device busy
-                   share, time by kernel);
+                   verify-compact self and R x S, with and without pivot
+                   coordinates, and with a forced overflow;
+  4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
+                   (the shape of the SIFT1M base set): the default config
+                   (emit="mask") and emit="compact", each with the launch
+                   counts reset before and read after and a brute-force spot
+                   check of 256 rows. A probe predicts both; if they do not
+                   fit their share of the time limit, the mask join is halved
+                   first, on a printed "reduced" line. Then the map-assign
+                   kernel checked and timed at the main path's shapes, and a
+                   50,000-row join of each emission mode under torch.profiler
+                   (device busy share, time by kernel);
+  serving        — build_index over the main path's rows, 8 timed query
+                   batches of 4,096 fresh rows of the same mixture (route and
+                   verify seconds, QPS, p50/p99), two checked against brute
+                   force, save -> load -> query byte-identical, and one
+                   insert_batch of 1 % of the rows with 256 delta rows
+                   checked by brute force;
   5. exactness   — at N = 50,000 the join (l1, l2; prune pivot and none; one
                    R x S) equals a brute-force join done in row chunks with
                    the plain version on the card: byte for byte, or differing
                    only in pairs that straddle delta between the kernel's and
                    the plain fp32 distance (l2's expansion form), each within
-                   the stated per-pair tolerance (``dist_tol``).
+                   the stated per-pair tolerance (``dist_tol``); emit="compact"
+                   and prune="window" joins equal the default join byte for
+                   byte (l1, l2, R x S), a forced-overflow compact join too,
+                   and join_incremental over a 4-way split equals the join.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
+A full run takes about 7 minutes on an H100 (build ~15 s).
 """
 from __future__ import annotations
 
@@ -41,7 +54,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import partition, spjoin  # noqa: E402
+from repro_torch.core import index, partition, spjoin, verify  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 
@@ -49,7 +62,10 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
 N_ROWS = 1_000_000  # the main path's rows before any "reduced" cut
-MAIN_SHARE_S = 420.0  # the main path's share of the time limit
+MAIN_SHARE_S = 480.0  # the two main-path joins' share of the time limit
+N_QUERY_BATCHES = 8  # timed query batches of the serving phase
+QUERY_BATCH = 4096  # rows per query batch
+INSERT_SHARE = 0.01  # the serving phase's insert: 1 % of the indexed rows
 BRUTE_CHUNK = 2048  # spjoin.brute_force_pairs' default row chunk
 T_START = time.perf_counter()
 
@@ -325,7 +341,128 @@ def phase_kernels() -> dict:
         name="map_assign", route="cuda", source="src/repro_torch/kernels/csrc/mapassign.cu",
         replaces="src/repro/kernels/mapassign.py:133", max_abs_err=worst, library_ms=None,
     )
+    check_verify_compact(report)
     return report
+
+
+def _pair_keys(pairs: torch.Tensor) -> torch.Tensor:
+    """Sorted int64 keys v * 2**32 + w of a pair buffer's filled slots."""
+    p = pairs[pairs[:, 0] >= 0].long()
+    return (p[:, 0] * (1 << 32) + p[:, 1]).sort().values
+
+
+def compact_tile(x, y, metric: str, coords: bool):
+    """Ids and pivot coordinates of a verify-compact test tile: V ids 0..a-1
+    and W ids 0..b-1 (so an id is its row), the last rows padding (-1), W
+    kernel cells around the verified cell 2, rows sorted by their first
+    mapped coordinate so some 64x64 blocks are pruned whole."""
+    a, b = x.shape[0], y.shape[0]
+    vids = torch.arange(a, dtype=torch.int32, device="cuda")
+    wids = torch.arange(b, dtype=torch.int32, device="cuda")
+    vids[-3:] = -1
+    wids[-2:] = -1
+    wcells = (torch.arange(b, device="cuda", dtype=torch.int32) * 7) % 5
+    px = py = None
+    if coords:
+        anchors = y[:8]
+        px, py = ref.pairdist(x, anchors, metric), ref.pairdist(y, anchors, metric)
+    return vids, wids, wcells, px, py
+
+
+def check_verify_compact_tile(x, y, metric: str, cross: bool, coords: bool) -> tuple[int, int, int]:
+    """The verify-compact kernel against its plain version on one tile:
+    the candidate count exact; the pair sets equal except pairs whose plain
+    distance is within its stated tolerance of delta (``dist_tol``), and the
+    kernel's count exactly its filled slots; then a forced overflow
+    (capacity a third of the count) keeps the exact count and fills every
+    slot with kernel pairs. Returns (count, n_cand, band pairs)."""
+    a, b, m = x.shape[0], y.shape[0], x.shape[1]
+    vids, wids, wcells, px, py = compact_tile(x, y, metric, coords)
+    d64 = pairdist64(x, y, metric)
+    delta = float(d64.flatten().kthvalue(max(1, d64.numel() // 1000)).values)
+    db = ref.prune_delta(delta, metric, float(max(x.abs().max(), y.abs().max())), m) if coords else None
+    kw = dict(delta=delta, metric=metric, cross=cross, delta_bound=db)
+
+    def run(backend, capacity):
+        return ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, capacity=capacity,
+                                  backend=backend, **kw)
+
+    gp, gc, gn = count_one_launch("verify_compact", lambda: run("cuda", a * b))
+    wp, wc, wn = run("torch", a * b)
+    gc, gn, wc, wn = int(gc), int(gn), int(wc), int(wn)
+    assert gn == wn, (metric, cross, coords, gn, wn)
+    assert bool((gp[:gc] >= 0).all()) and bool((gp[gc:] == -1).all()), "count != filled slots"
+    k_keys, p_keys = _pair_keys(gp), _pair_keys(wp)
+    both = torch.cat([k_keys, p_keys])
+    uniq, cnt = torch.unique(both, return_counts=True)
+    diff = uniq[cnt == 1]
+    band = 0
+    if diff.numel():
+        i, j = diff >> 32, diff & 0xFFFFFFFF
+        d_plain = ref.pairdist(x, y, metric)[i, j]
+        d_k = ops.pairdist(x, y, metric, backend="cuda")[i, j]
+        nx, ny = x[i].double().norm(dim=1), y[j].double().norm(dim=1)
+        tol = dist_tol(metric, m, nx, ny, d64[i, j], d_k, d_plain)
+        band = int(diff.numel())
+        assert bool(((d_plain.double() - delta).abs() <= tol).all()), "compact pairs differ off the delta band"
+    assert gc - wc == int(torch.isin(diff, k_keys).sum()) - int(torch.isin(diff, p_keys).sum())
+    cap = max(gc // 3, 1)
+    op, oc, _ = count_one_launch("verify_compact", lambda: run("cuda", cap))
+    assert int(oc) == gc and bool(torch.isin(_pair_keys(op), k_keys).all()) and int((op[:, 0] >= 0).sum()) == cap
+    return gc, gn, band
+
+
+def check_verify_compact(report: dict) -> None:
+    worst_band = 0
+    for metric in ref.METRICS:
+        for a, b, m in ((1000, 3001, 100), (77, 1030, 33)):
+            z = _mixture(a + b, m, 17)
+            x, y = z[:a], z[a:]
+            for cross in (False, True):
+                for coords in (False, True) if metric in ops.PRUNABLE_METRICS else (False,):
+                    count, n_cand, band = check_verify_compact_tile(x, y, metric, cross, coords)
+                    worst_band = max(worst_band, band)
+                    log(f"verify_compact {metric:6s} {a}x{b}x{m} cross={cross} coords={coords}: "
+                        f"count {count} n_cand {n_cand} delta-band pairs {band}; overflow exact")
+    # The main path's tile: l1, 1024 x 4096 x 128, 8 mapped dims, sorted
+    # clustered rows (some blocks pruned whole).
+    a, b, m = 1024, 4096, 128
+    z = _mixture(a + b, m, 5)
+    x, y = z[:a], z[a:]
+    anchors = y[:8]
+    order_x = ref.pairdist(x, anchors, "l1")[:, 0].argsort()
+    order_y = ref.pairdist(y, anchors, "l1")[:, 0].argsort()
+    x, y = x[order_x].contiguous(), y[order_y].contiguous()
+    for cross in (False, True):
+        count, n_cand, band = check_verify_compact_tile(x, y, "l1", cross, True)
+        log(f"verify_compact l1 {a}x{b}x{m} (main tile) cross={cross} coords=True: count {count} "
+            f"n_cand {n_cand} of {a * b} delta-band pairs {band}; overflow exact")
+        assert n_cand < a * b
+    vids, wids, wcells, px, py = compact_tile(x, y, "l1", True)
+    delta = float(ref.pairdist(x[:64], y, "l1").flatten().kthvalue(64 * b // 100).values)
+    db = ref.prune_delta(delta, "l1", float(max(x.abs().max(), y.abs().max())), m)
+    _, count, n_cand = ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, capacity=a * b,
+                                          delta=delta, metric="l1", delta_bound=db, backend="cuda")
+    count, n_cand = int(count), int(n_cand)
+    cap = verify.bucket_size(2 * count + verify._EMIT_FLOOR, a * b)
+    kw = dict(capacity=cap, delta=delta, metric="l1", delta_bound=db)
+    ms = cuda_ms(lambda: ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="cuda", **kw))
+    plain = cuda_ms(lambda: ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="torch", **kw))
+    # Bytes: rows and pivot coordinates, ids and cells read once, the pair
+    # buffer and the counters written once. Operations: the bound pass over
+    # every pair and the exact distance of the bound survivors.
+    n_bytes = 4 * (a + b) * (m + 8) + 4 * (a + 2 * b) + 8 * cap + 8
+    bms, by = bound_ms(n_bytes, 2.0 * a * b * 8 + 2.0 * n_cand * m)
+    report["verify_compact"] = dict(
+        name="verify_compact", route="cuda", source="src/repro_torch/kernels/csrc/compact.cu",
+        # The output is a pair buffer: its error is the pair-set mismatches
+        # off the delta band, asserted 0 above (band pairs are allowed).
+        replaces="src/repro/kernels/compact.py:179", max_abs_err=0.0, ms=ms,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+    )
+    log(f"verify_compact: most delta-band pairs in one tile {worst_band}")
+    log(f"verify_compact l1 {a}x{b}x{m} self (count {count}, bound survivors {n_cand}, capacity {cap}): "
+        f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
 
 
 def check_map_assign(x, anchors, boxes, metric, got, want) -> tuple[float, int, int, int, int]:
@@ -470,60 +607,13 @@ def run_join(x, cfg, **kw):
     return res, time.perf_counter() - t0
 
 
-def phase_main_path(report: dict) -> tuple[dict, int]:
-    log("== phase 4: main path (default JoinConfig, l1 self-join)")
-    m = 128
-    # Probe at n/16, run twice so the timed run is warm (the first pays the
-    # one-time costs: kernel loads, allocator growth). The verify work grows
-    # ~quadratically, so predict the full run and halve N until it fits
-    # the phase's share.
-    n = N_ROWS
-    probe_n = max(n // 16, 20000)
-    xp = _mixture(probe_n, m, 11)
-    dp = pick_delta(xp, "l1", 10.0 * probe_n / n)
-    run_join(xp, spjoin.JoinConfig(delta=dp))
-    probe, t_probe = run_join(xp, spjoin.JoinConfig(delta=dp))
-    del xp
-
-    def predict(rows: int) -> float:  # sampling + map ~linear, verify ~quadratic
-        r = rows / probe_n
-        return (t_probe - probe.verify_time_s) * r + probe.verify_time_s * r * r
-
-    log(f"probe: {probe_n} rows in {t_probe:.2f}s; predicted {predict(n):.1f}s at {n} rows")
-    while n > probe_n and predict(n) > MAIN_SHARE_S:
-        log(f"reduced: n_rows {n} -> {n // 2} (predicted {predict(n):.1f}s > {MAIN_SHARE_S:.0f}s)")
-        n //= 2
-    x = _mixture(n, m, 12)
-    delta = pick_delta(x, "l1", 10.0)
-    cfg = spjoin.JoinConfig(delta=delta)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    res, wall = run_join(x, cfg)
-    counts = ops.launch_counts()
-    vs = res.verify_stats
-    mean_nb = 2.0 * res.n_pairs / n
-    log(f"N={n} m={m} delta={delta:.6f} n_pairs={res.n_pairs} mean_neighbours={mean_nb:.3f}")
-    log(f"seconds: sample {res.sample_time_s:.3f} map {res.map_time_s:.3f} verify {res.verify_time_s:.3f} total {wall:.3f}")
-    log("VerifyStats " + json.dumps({
-        k: getattr(vs, k) for k in (
-            "n_verifications", "n_padded", "n_dispatched", "n_tiles", "n_cells", "n_hits",
-            "n_pruned", "n_tiles_pruned", "n_overflow_retries", "prune", "emit",
-            "n_buckets", "occupancy", "n_exact", "prune_rate",
-        )
-    }))
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"launch counts (main path) {json.dumps(counts)}")
-    assert counts["map_assign"] > 0 and counts["pairdist_filtered"] > 0, counts
-    assert 1.0 <= mean_nb <= 100.0, mean_nb
-    pairs = res.pairs
-    assert pairs.dtype == np.int64 and pairs.shape[1] == 2 and (pairs[:, 0] < pairs[:, 1]).all()
-    assert (np.diff(pairs[:, 0]) >= 0).all()
-    # Spot check at full size: every partner of 256 sampled rows, by brute
-    # force on the card, against the join's pairs (borderline band excused).
-    rows = torch.randperm(n, device="cuda")[:256]
+def spot_check(x: torch.Tensor, pairs: np.ndarray, delta: float, rows: torch.Tensor) -> str:
+    """Every partner of the sampled ``rows`` by brute force on the card (l1,
+    plain version) against the join's pairs; a difference is allowed only
+    for a pair whose float64 distance is within 1e-5·max(1, δ) of δ."""
     d = ref.pairdist(x[rows], x, "l1")
     hit = d <= delta
-    hit[torch.arange(256, device="cuda"), rows] = False
+    hit[torch.arange(rows.numel(), device="cuda"), rows] = False
     pt = torch.as_tensor(pairs, device="cuda")
     got = torch.zeros_like(hit)
     for j, r in enumerate(rows.tolist()):
@@ -533,9 +623,85 @@ def phase_main_path(report: dict) -> tuple[dict, int]:
     if diff.numel():
         d64 = (x[rows[diff[:, 0]]].double() - x[diff[:, 1]].double()).abs().sum(1)
         assert bool(((d64 - delta).abs() <= 1e-5 * max(1.0, delta)).all()), "join missed pairs"
-    log(f"spot check: 256 rows, {int(hit.sum())} partners, {diff.shape[0]} borderline differences")
-    check_and_time_map_assign(report, x, cfg)
-    return counts, n
+    return f"{rows.numel()} rows, {int(hit.sum())} partners, {diff.shape[0]} borderline differences"
+
+
+def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
+    """One main-path join with the launch counts set to 0 just before and
+    read just after; prints its phases, VerifyStats and counts."""
+    n = x.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res, wall = run_join(x, cfg)
+    counts = ops.launch_counts()
+    vs = res.verify_stats
+    mean_nb = 2.0 * res.n_pairs / n
+    log(f"[{label}] N={n} m={x.shape[1]} delta={cfg.delta:.6f} emit={cfg.emit} n_pairs={res.n_pairs} "
+        f"mean_neighbours={mean_nb:.3f}")
+    log(f"[{label}] seconds: sample {res.sample_time_s:.3f} map {res.map_time_s:.3f} "
+        f"verify {res.verify_time_s:.3f} total {wall:.3f}")
+    log(f"[{label}] VerifyStats " + json.dumps({
+        k: getattr(vs, k) for k in (
+            "n_verifications", "n_padded", "n_dispatched", "n_tiles", "n_cells", "n_hits",
+            "n_pruned", "n_tiles_pruned", "n_overflow_retries", "prune", "emit",
+            "n_buckets", "occupancy", "n_exact", "prune_rate",
+        )
+    }))
+    log(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{label}] launch counts {json.dumps(counts)}")
+    assert 1.0 <= mean_nb <= 100.0, mean_nb
+    pairs = res.pairs
+    assert pairs.dtype == np.int64 and pairs.shape[1] == 2 and (pairs[:, 0] < pairs[:, 1]).all()
+    assert (np.diff(pairs[:, 0]) >= 0).all()
+    log(f"[{label}] spot check: {spot_check(x, pairs, cfg.delta, torch.randperm(n, device='cuda')[:256])}")
+    return res, counts
+
+
+def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Tensor, float]:
+    """The two main-path joins over the first N_ROWS rows of ``z``."""
+    log("== phase 4: main path (l1 self-join; default config, then emit=\"compact\")")
+    m = z.shape[1]
+    # Probe both configs at n/16, each run twice so the timed run is warm.
+    # The verify work grows ~quadratically: predict both full runs and halve
+    # the mask join's N first until the pair fits the share.
+    probe_n = max(N_ROWS // 16, 20000)
+    xp = _mixture(probe_n, m, 11)
+    dp = pick_delta(xp, "l1", 10.0 * probe_n / N_ROWS)
+    probes = {}
+    for emit in ("mask", "compact"):
+        run_join(xp, spjoin.JoinConfig(delta=dp, emit=emit))
+        probes[emit] = run_join(xp, spjoin.JoinConfig(delta=dp, emit=emit))
+    del xp
+
+    def predict(emit: str, rows: int) -> float:  # sampling + map ~linear, verify ~quadratic
+        res, t = probes[emit]
+        r = rows / probe_n
+        return (t - res.verify_time_s) * r + res.verify_time_s * r * r
+
+    n_mask = n_compact = N_ROWS
+    log(f"probe: {probe_n} rows, mask {probes['mask'][1]:.2f}s compact {probes['compact'][1]:.2f}s; "
+        f"predicted {predict('mask', N_ROWS):.1f}s + {predict('compact', N_ROWS):.1f}s at {N_ROWS} rows")
+    while n_mask > probe_n and predict("mask", n_mask) + predict("compact", n_compact) > MAIN_SHARE_S:
+        log(f"reduced: mask join n_rows {n_mask} -> {n_mask // 2} (predicted "
+            f"{predict('mask', n_mask) + predict('compact', n_compact):.1f}s > {MAIN_SHARE_S:.0f}s)")
+        n_mask //= 2
+    while n_compact > probe_n and predict("mask", n_mask) + predict("compact", n_compact) > MAIN_SHARE_S:
+        log(f"reduced: compact join n_rows {n_compact} -> {n_compact // 2}")
+        n_compact //= 2
+    x = z[:N_ROWS]
+    delta = pick_delta(x, "l1", 10.0)
+    res_m, counts_m = main_join(x[:n_mask], spjoin.JoinConfig(delta=delta), "mask")
+    assert counts_m["map_assign"] > 0 and counts_m["pairdist_filtered"] > 0, counts_m
+    assert counts_m["verify_compact"] == 0, counts_m
+    res_c, counts_c = main_join(x[:n_compact], spjoin.JoinConfig(delta=delta, emit="compact"), "compact")
+    assert counts_c["map_assign"] > 0 and counts_c["verify_compact"] > 0, counts_c
+    assert counts_c["pairdist_filtered"] == 0, counts_c
+    if n_mask == n_compact:
+        same = res_m.pairs.tobytes() == res_c.pairs.tobytes()
+        log(f"compact == mask pairs at N={n_mask}: {same}")
+        assert same
+    check_and_time_map_assign(report, x[:n_compact], spjoin.JoinConfig(delta=delta))
+    return counts_m, counts_c, x, delta
 
 
 def main_path_plan(x: torch.Tensor, cfg) -> tuple:
@@ -550,15 +716,16 @@ def main_path_plan(x: torch.Tensor, cfg) -> tuple:
     return smap.anchors, plan
 
 
-def profile_join(n: int) -> None:
-    """Where the join's time goes on the device: one default-config join
-    of n rows under torch.profiler; device busy time is the sum of the
-    kernels' intervals (one stream, so they do not overlap)."""
+def profile_join(n: int, emit: str) -> None:
+    """Where the join's time goes on the device: one l1 join of n rows
+    under torch.profiler; device busy time is the sum of the kernels'
+    intervals (one stream, so they do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = _mixture(n, 128, 13)
-    cfg = spjoin.JoinConfig(delta=pick_delta(x, "l1", 10.0))
+    torch.manual_seed(1)  # the same δ for both emission modes
+    cfg = spjoin.JoinConfig(delta=pick_delta(x, "l1", 10.0), emit=emit)
     run_join(x, cfg)  # warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res, wall = run_join(x, cfg)
@@ -567,10 +734,75 @@ def profile_join(n: int) -> None:
         if e.device_type == DeviceType.CUDA:
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(per_kernel.values())
-    log(f"profile: N={n} join wall {wall * 1e3:.1f} ms (verify {res.verify_time_s * 1e3:.1f} ms, "
+    log(f"profile emit={emit}: N={n} join wall {wall * 1e3:.1f} ms (verify {res.verify_time_s * 1e3:.1f} ms, "
         f"{res.verify_stats.n_tiles} tiles) device busy {busy:.1f} ms = {busy / (wall * 1e3):.3f} of wall")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  device {ms:10.2f} ms  {name[:100]}")
+
+
+def phase_serving(z: torch.Tensor, delta: float) -> None:
+    """The persistent index over the main path's rows: build, timed query
+    batches of fresh rows of the same mixture, brute-force checks, save ->
+    load -> query, and one insert of 1 % of the rows."""
+    log("== serving: build_index over the main path's rows, query, save/load, insert")
+    x = z[:N_ROWS]
+    queries = z[N_ROWS : N_ROWS + (N_QUERY_BATCHES + 1) * QUERY_BATCH]
+    n_ins = int(INSERT_SHARE * N_ROWS)
+    delta_rows = z[N_ROWS + queries.shape[0] : N_ROWS + queries.shape[0] + n_ins]
+    cfg = spjoin.JoinConfig(delta=delta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = index.build_index(x, cfg)
+    torch.cuda.synchronize()
+    log(f"build_index: N={idx.n_rows} p={idx.p} k={idx.k} backend={idx.backend} in {time.perf_counter() - t0:.3f}s")
+    batches = [queries[i * QUERY_BATCH : (i + 1) * QUERY_BATCH] for i in range(N_QUERY_BATCHES + 1)]
+    idx.query_batch(batches[-1])  # warm
+    lat, answers = [], []
+    for i, q in enumerate(batches[:-1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs, st = idx.query_batch(q, with_stats=True)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        answers.append(pairs)
+        log(f"query batch {i}: {q.shape[0]} rows, {len(pairs)} pairs, route {st.route_s:.4f}s "
+            f"verify {st.verify_s:.4f}s total {lat[-1]:.4f}s, duplication {st.duplication:.3f}, "
+            f"tiles {st.verify.n_tiles}, prune rate {st.verify.prune_rate:.4f}")
+    lat_s = np.array(lat)
+    log(f"serving: QPS {N_QUERY_BATCHES * QUERY_BATCH / lat_s.sum():.1f} p50 {np.percentile(lat_s, 50):.4f}s "
+        f"p99 {np.percentile(lat_s, 99):.4f}s per {QUERY_BATCH}-row batch")
+    for i in (0, 1):
+        truth = index.brute_force_query(x, batches[i], delta, "l1")
+        log(f"query batch {i} vs brute force: {check_exact(answers[i], truth, x, batches[i], 'l1', delta)}")
+    path = os.path.join(ROOT, "build", "chip_smoke_index")
+    t0 = time.perf_counter()
+    idx.save(path)
+    loaded = index.MetricIndex.load(path, metric="l1", delta=delta, k=idx.k)
+    same = loaded.query_batch(batches[0]).tobytes() == answers[0].tobytes()
+    log(f"save -> load -> query: byte-identical {same} ({time.perf_counter() - t0:.2f}s)")
+    assert same
+    del loaded
+    n_old = idx.n_rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_pairs, st = idx.insert_batch(delta_rows)
+    torch.cuda.synchronize()
+    t_ins = time.perf_counter() - t0
+    log(f"insert_batch: {st.n_delta} rows onto {st.n_resident} in {t_ins:.3f}s (route {st.route_s:.3f}s "
+        f"verify {st.verify_s:.3f}s update {st.update_s:.3f}s), action {st.action}, drift {st.drift:.4f}, "
+        f"new pairs {st.n_new_pairs} (cross {st.n_cross_pairs}, self {st.n_self_pairs})")
+    full = torch.cat([x, delta_rows])
+    rows = n_old + torch.randperm(n_ins, device="cuda")[:256]
+    log(f"insert spot check: {spot_check(full, new_pairs, delta, rows)}")
+    assert idx.n_rows == n_old + n_ins and (new_pairs[:, 1] >= n_old).all()
+
+
+def _same_or_straddles(got: np.ndarray, want: np.ndarray, truth, x, y, metric, delta) -> str:
+    """Byte-identical to ``want``, or else both exact against brute force
+    up to delta straddles (``check_exact``)."""
+    if got.tobytes() == want.tobytes():
+        return "byte-identical"
+    return "differs only by straddles: " + check_exact(got, truth, x, y, metric, delta)
 
 
 def phase_exactness() -> dict:
@@ -581,7 +813,8 @@ def phase_exactness() -> dict:
         x = _mixture(n, m, 21)
         delta = gap_delta(x, metric, 10.0)
         truth = spjoin.brute_force_pairs(x, delta, metric, device="cuda", chunk=BRUTE_CHUNK)
-        pivot, t_pivot = run_join(x, spjoin.JoinConfig(delta=delta, metric=metric))
+        base = spjoin.JoinConfig(delta=delta, metric=metric)
+        pivot, t_pivot = run_join(x, base)
         ops.reset_launch_counts()
         none, t_none = run_join(x, spjoin.JoinConfig(delta=delta, metric=metric, prune="none"))
         counts = ops.launch_counts()  # the prune="none" path: the plain pairdist kernel
@@ -592,6 +825,34 @@ def phase_exactness() -> dict:
             f"prune=none launch counts {json.dumps(counts)}")
         assert same, metric
         assert counts["pairdist"] > 0, counts
+        for kw in (dict(emit="compact"), dict(prune="window"), dict(prune="window", emit="compact")):
+            res, t = run_join(x, spjoin.JoinConfig(delta=delta, metric=metric, **kw))
+            same = res.pairs.tobytes() == pivot.pairs.tobytes()
+            log(f"{metric} {kw}: == default join {same} ({t:.2f}s, {res.verify_stats.n_tiles} tiles, "
+                f"prune rate {res.verify_stats.prune_rate:.4f})")
+            assert same, (metric, kw)
+        t0 = time.perf_counter()
+        inc = spjoin.join_incremental(torch.tensor_split(x, 4), base)
+        verdict = _same_or_straddles(inc.pairs, pivot.pairs, truth, x, x, metric, delta)
+        log(f"{metric} join_incremental (4-way split, actions {[st.action for st in inc.stats]}): "
+            f"{verdict} ({time.perf_counter() - t0:.2f}s)")
+        if metric == "l1":
+            assert verdict == "byte-identical"
+    x = _mixture(n, m, 21)
+    delta = gap_delta(x, "l1", 10.0)
+    base, _ = run_join(x, spjoin.JoinConfig(delta=delta))
+    knobs = {k: getattr(verify, k) for k in
+             ("DEFAULT_EMIT_RATE", "EMIT_SLACK", "_EMIT_FLOOR", "_estimate_emit_rate")}
+    verify.DEFAULT_EMIT_RATE = verify.EMIT_SLACK = 1e-9
+    verify._EMIT_FLOOR = 1
+    verify._estimate_emit_rate = lambda *a, **k: 1e-9
+    forced, t = run_join(x, spjoin.JoinConfig(delta=delta, emit="compact"))
+    for k, v in knobs.items():
+        setattr(verify, k, v)
+    vs = forced.verify_stats
+    log(f"l1 forced-overflow compact join: n_overflow_retries {vs.n_overflow_retries} over {vs.n_tiles} "
+        f"tiles, == default join {forced.pairs.tobytes() == base.pairs.tobytes()} ({t:.2f}s)")
+    assert vs.n_overflow_retries > 0 and forced.pairs.tobytes() == base.pairs.tobytes()
     r, s = synthetic.rs_mixture(20_000, 40_000, m, n_clusters=64, seed=22)
     r, s = torch.as_tensor(r).cuda(), torch.as_tensor(s).cuda()
     delta = gap_delta(r, "l1", 10.0, s=s)
@@ -599,6 +860,11 @@ def phase_exactness() -> dict:
     res, t = run_join(r, spjoin.JoinConfig(delta=delta), s=s)
     verdict = check_exact(res.pairs, truth, r, s, "l1", delta)
     log(f"R x S l1: |R|={r.shape[0]} |S|={s.shape[0]} delta {delta:.6f} pairs {res.n_pairs} brute force {len(truth)}: {verdict} ({t:.2f}s)")
+    for kw in (dict(emit="compact"), dict(prune="window")):
+        other, t = run_join(r, spjoin.JoinConfig(delta=delta, **kw), s=s)
+        same = other.pairs.tobytes() == res.pairs.tobytes()
+        log(f"R x S l1 {kw}: == default join {same} ({t:.2f}s)")
+        assert same, kw
     return counts
 
 
@@ -609,17 +875,29 @@ def main() -> None:
     phase_build()
     report = phase_kernels()
     log(f"[{elapsed():.1f}s] kernels checked")
-    main_counts, n = phase_main_path(report)
-    log(f"[{elapsed():.1f}s] main path done at N={n}")
-    profile_join(50_000)
-    log(f"[{elapsed():.1f}s] profile done")
+    # The main path's rows, then fresh rows of the same mixture for the
+    # serving phase's queries and insert.
+    extra = (N_QUERY_BATCHES + 1) * QUERY_BATCH + int(INSERT_SHARE * N_ROWS)
+    z = _mixture(N_ROWS + extra, 128, 12)
+    mask_counts, compact_counts, x, delta = phase_main_path(report, z)
+    log(f"[{elapsed():.1f}s] main path done")
+    profile_join(50_000, "mask")
+    profile_join(50_000, "compact")
+    log(f"[{elapsed():.1f}s] profiles done")
+    phase_serving(z, delta)
+    del z, x
+    log(f"[{elapsed():.1f}s] serving done")
     none_counts = phase_exactness()
     log(f"[{elapsed():.1f}s] exactness done")
+    launches = {
+        "pairdist": none_counts["pairdist"],
+        "pairdist_filtered": mask_counts["pairdist_filtered"],
+        "map_assign": mask_counts["map_assign"],
+        "verify_compact": compact_counts["verify_compact"],
+    }
     kernels = []
-    for name in ("pairdist", "pairdist_filtered", "map_assign"):
-        row = dict(report[name])
-        row["launches"] = none_counts[name] if name == "pairdist" else main_counts[name]
-        kernels.append(row)
+    for name, n in launches.items():
+        kernels.append({**report[name], "launches": n})
     log(env["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"], "count": env["count"]}}))

@@ -53,7 +53,7 @@ def _angular_pairwise(x: Tensor, y: Tensor) -> Tensor:
 
 def _jaccard_minhash_pairwise(x: Tensor, y: Tensor) -> Tensor:
     # x, y are integer MinHash signatures; distance = 1 − estimated Jaccard sim.
-    eq = (x[:, None, :] == y[None, :, :]).float()
+    eq = (x[..., :, None, :] == y[..., None, :, :]).float()
     return 1.0 - eq.mean(-1)
 
 

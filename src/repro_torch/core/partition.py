@@ -242,11 +242,11 @@ def whole_membership(
     return inside.all(-1)
 
 
-def tighten(plan: PartitionPlan, x_mapped: Tensor, cell_ids: Tensor) -> PartitionPlan:
-    """Shrink each kernel box to the MBB of its assigned objects, then
-    re-expand by δ. Empty cells collapse to an inverted box (no members ⇒
-    no verifications). Preserves Lemma 4."""
-    p, n = plan.p, x_mapped.shape[1]
+def member_boxes(x_mapped: Tensor, cell_ids: Tensor, p: int) -> tuple[Tensor, Tensor]:
+    """(p, n) MBB of each cell's assigned objects (segment min/max); empty
+    cells collapse to the inverted (BIG, -BIG) box, which no radius can
+    route into."""
+    n = x_mapped.shape[1]
     xm = x_mapped.float()
     idx = cell_ids.to(torch.int64)[:, None].expand(-1, n)
     zeros = torch.zeros((p, n), dtype=torch.float32, device=xm.device)
@@ -255,6 +255,14 @@ def tighten(plan: PartitionPlan, x_mapped: Tensor, cell_ids: Tensor) -> Partitio
     empty = torch.bincount(cell_ids.to(torch.int64), minlength=p)[:p] == 0
     lo = torch.where(empty[:, None], BIG, seg_min)
     hi = torch.where(empty[:, None], -BIG, seg_max)
+    return lo, hi
+
+
+def tighten(plan: PartitionPlan, x_mapped: Tensor, cell_ids: Tensor) -> PartitionPlan:
+    """Shrink each kernel box to the MBB of its assigned objects, then
+    re-expand by δ. Empty cells collapse to an inverted box (no members ⇒
+    no verifications). Preserves Lemma 4."""
+    lo, hi = member_boxes(x_mapped, cell_ids, plan.p)
     return PartitionPlan(
         kernel_lo=plan.kernel_lo,
         kernel_hi=plan.kernel_hi,

@@ -55,8 +55,8 @@ class JoinConfig:
     backend: str = "auto"  # kernels: torch | cuda | auto
     tile_v: int = 1024  # verify engine streaming tile (V side)
     tile_w: int = 4096  # verify engine streaming tile (W side)
-    prune: str = "pivot"  # pivot-filter pruning: "pivot" | "none"
-    emit: str = "mask"  # verify-engine emission path: "mask"
+    prune: str = "pivot"  # pivot-filter pruning: "pivot" | "window" | "none"
+    emit: str = "mask"  # verify-engine emission path: "mask" | "compact"
     map_fused: bool = True  # single-pass map kernel (kernels.ops.map_assign);
     #   metrics without a kernel take the two-pass path (capability)
     placement: str = "lpt"  # reduce-placement plan to REPORT ("lpt" | "contiguous")
@@ -307,6 +307,116 @@ def join(
         makespan_ratio=float(dev_loads.max(initial=0.0) / max(dev_loads.mean(), 1e-9)),
         capacity_saved_bytes=int(cap_saved),
     )
+
+
+class IncrementalJoin:
+    """Streaming self-join session: feed insertion batches, accumulate the
+    canonical pair set (sorted unique (i, j) int64, i < j, GLOBAL ids in
+    arrival order).
+
+    Batch 0 runs the one-time build (``index.build_index`` — the only time
+    sampling / anchor selection / partitioning run) and emits its
+    self-join pairs through the index's cached artifacts; every later batch
+    goes through ``MetricIndex.insert_batch`` — only the delta is mapped,
+    ΔR×R_old streams against the resident V lists and ΔR×ΔR self-joins
+    under the updated member MBBs. A re-sample-worthy drift rebuilds with
+    this session's own ``cfg``.
+
+    Exactness: for a fixed seed and ANY split of R into batches, ``pairs``
+    after the last insert equals ``join(R, cfg).pairs`` over the
+    concatenated rows (both are exact).
+    """
+
+    def __init__(
+        self,
+        cfg: JoinConfig,
+        *,
+        n_nodes: int = 4,
+        n_devices: int | None = None,
+        replan_drift: float | None = None,
+        resample_drift: float | None = None,
+        device: torch.device | str = "cuda",
+    ):
+        self.cfg = cfg
+        self.n_nodes = n_nodes
+        self.n_devices = n_devices
+        self.replan_drift = replan_drift
+        self.resample_drift = resample_drift
+        self.device = kops.resolve_device(device)
+        self.index = None  # built lazily on the first non-empty batch
+        self.stats: list = []  # one StreamStats per insert() call
+        self._pairs = np.zeros((0, 2), np.int64)
+
+    @property
+    def pairs(self) -> np.ndarray:
+        """Accumulated canonical pair set (sorted unique, global ids)."""
+        return self._pairs
+
+    @property
+    def n_rows(self) -> int:
+        return 0 if self.index is None else self.index.n_rows
+
+    def insert(self, new_rows):
+        """Absorb one insertion batch; returns (new_pairs, StreamStats)."""
+        from repro_torch.core import index as index_lib  # deferred: import cycle
+
+        n_new = int(new_rows.shape[0])
+        if self.index is None:
+            if n_new == 0:
+                # Nothing to build from yet — stay lazy, report a no-op.
+                stats = index_lib.StreamStats(action="none")
+                self.stats.append(stats)
+                return np.zeros((0, 2), np.int64), stats
+            bcfg = self.cfg
+            if n_new < bcfg.n_dims:
+                # A tiny first batch can yield fewer distinct pivots than
+                # mapped dimensions; exactness holds under any plan, and a
+                # re-sample later rebuilds with the full config.
+                bcfg = dataclasses.replace(bcfg, n_dims=max(1, n_new))
+            self.index = index_lib.build_index(
+                new_rows, bcfg, n_nodes=max(1, min(self.n_nodes, n_new)),
+                n_devices=self.n_devices, device=self.device,
+            )
+            new_pairs = self.index.self_pairs()
+            stats = index_lib.StreamStats(
+                n_delta=n_new, n_resident=0, n_total=n_new,
+                n_self_pairs=int(new_pairs.shape[0]),
+                n_new_pairs=int(new_pairs.shape[0]),
+                action="build",
+            )
+        else:
+            new_pairs, stats = self.index.insert_batch(
+                new_rows,
+                replan_drift=self.replan_drift,
+                resample_drift=self.resample_drift,
+                rebuild_cfg=self.cfg,
+            )
+        if new_pairs.shape[0]:
+            self._pairs = np.unique(np.concatenate([self._pairs, new_pairs]), axis=0)
+        self.stats.append(stats)
+        return new_pairs, stats
+
+
+def join_incremental(
+    batches,
+    cfg: JoinConfig,
+    *,
+    n_nodes: int = 4,
+    n_devices: int | None = None,
+    replan_drift: float | None = None,
+    resample_drift: float | None = None,
+    device: torch.device | str = "cuda",
+) -> IncrementalJoin:
+    """Run the streaming layer over an iterable of insertion batches and
+    return the finished session (``.pairs`` the accumulated canonical set,
+    ``.stats`` the per-batch trail, ``.index`` the live ``MetricIndex``)."""
+    session = IncrementalJoin(
+        cfg, n_nodes=n_nodes, n_devices=n_devices,
+        replan_drift=replan_drift, resample_drift=resample_drift, device=device,
+    )
+    for b in batches:
+        session.insert(b)
+    return session
 
 
 def brute_force_pairs(

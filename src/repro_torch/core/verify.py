@@ -10,31 +10,44 @@ Port of ``repro.core.verify`` with the same schedule and the same counters:
   * Tiles are accounted at the reference's quarter-power-of-two *bucket*
     shapes (``bucket_size``), so ``VerifyStats.n_padded`` / ``occupancy`` /
     ``bucket_shapes`` are the reference's. The kernels mask their own
-    ragged edges, so no tile is actually padded on the device.
+    ragged edges, so no tile is padded on the device (the batched window
+    dispatch of the plain path pads, as the reference's vmap does).
   * Data, mapped coordinates and tiles stay on the device: each cell's V and
     W rows are gathered once with index tensors (in window order under
     pruning) and every tile is a contiguous slice of those buffers. Only
-    the hits come back: the per-tile mask is compacted on the device
-    (``nonzero``) and the id pairs stay there until the final sort/unique.
+    the hits come back, and they stay on the device until the final
+    sort/unique.
   * The control plane — cell index lists, the per-cell sort dimension, the
     ``± delta_bound`` windows and the bounding-box tile skips — runs on host
     numpy over one host copy of the coordinates, exactly as the reference
     does, so every decision and counter is the reference's.
-  * ``prune="pivot"`` (the default) runs the candidate pre-pass per tile
-    (the L∞ bound over mapped coordinates, plain PyTorch on the device); its
-    count is read back once per tile — the whole-tile skip decision — and a
-    surviving tile runs the fused filtered pairdist kernel, which skips the
-    exact work per 64x64 block the bound prunes. ``prune="none"`` runs the
-    plain pairdist kernel.
+
+Prune modes (``EngineConfig.prune``): "none"; "pivot" — windows, bbox
+skips and the per-pair L∞ bound (the mask path runs the bound as a plain
+candidate pre-pass per tile, whose count is read back as the whole-tile
+skip decision, and the fused filtered pairdist kernel; the compact path
+runs the bound inside its kernel and reads the survivor count back in-band);
+"window" — windows and bbox skips only, the tile runs the plain pairdist
+kernel (one launch per tile on "cuda"; on "torch" the tiles are deferred
+and verified in same-bucket batches, ``_flush_window_batch``).
+
+Emission (``EngineConfig.emit``): "mask" — the tile's hit mask is compacted
+on the device with ``nonzero`` and the emission rule applied to the hit
+list; "compact" — the fused ``verify_compact`` tile (the CUDA kernel, or its
+plain version) returns a (capacity, 2) pair buffer plus ``[count, n_cand]``,
+and the counters are the tile's one read. The capacity comes from a
+survival-rate prior on the quarter-pow2 ladder; ``count > capacity`` is the
+overflow sentinel, answered by a retry at the bucket of the exact count
+(at most ``_MAX_OVERFLOW_RETRIES``), then by the mask path (the reference's
+algorithm, counted in ``n_overflow_retries``). The rule of which tiles carry
+the buffer is the reference's: ``buffered = emit == "compact" and (backend
+== "cuda" or prune == "pivot")``; otherwise compact lowers to the mask
+dispatch (same pairs, same counters).
 
 De-dup rule: a hit (i, j) with cell(i) = g, cell(j) = h is emitted by cell
 min(g, h) only; within one cell keep id_i < id_j (``ref.emit_mask``). R×S
 (``data_w`` given): V rows from R's kernel cells, W rows from S's whole
 membership; validity alone, pairs are (i ∈ R, j ∈ S).
-
-Not yet ported (ROADMAP queue 1, the ``prune="window"`` / ``emit="compact"``
-item): the host-only window mode and on-device pair compaction raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,13 +57,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import distances
+from repro_torch.core import cost_model, distances
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1: window prune and compact emission)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +72,11 @@ class EngineConfig:
     without a kernel (angular, jaccard_minhash) always take the plain path.
     ``tile_v`` / ``tile_w``: streaming tile capacity (rows per side).
     ``min_bucket``: smallest bucket side in the tile accounting.
-    ``prune``: "none" | "pivot" — pivot-filter pruning (L∞ lower bound over
-    mapped coordinates); metrics without the triangle inequality resolve
-    back to "none". ``emit``: "mask" (host readback of the hits).
+    ``prune``: "none" | "pivot" | "window" — pivot-filter pruning (L∞ lower
+    bound over mapped coordinates; module docstring); metrics without the
+    triangle inequality resolve back to "none".
+    ``emit``: "mask" | "compact" — how a tile's hits come back (module
+    docstring); metrics without a kernel resolve compact back to "mask".
     """
 
     backend: str = "auto"
@@ -91,7 +104,7 @@ class VerifyStats:
     n_hits: int = 0  # emitted (de-duplicated) hits
     n_pruned: int = 0  # valid pairs eliminated by the pivot filter / windows
     n_tiles_pruned: int = 0  # tiles skipped outright (every pair pruned)
-    n_overflow_retries: int = 0  # compact-emission re-dispatches (always 0 here)
+    n_overflow_retries: int = 0  # compact-emission re-dispatches (overflow sentinel)
     prune: str = "none"  # resolved prune mode the engine actually ran
     emit: str = "mask"  # resolved emission path the engine actually ran
     bucket_shapes: set = dataclasses.field(default_factory=set)
@@ -125,6 +138,14 @@ def apply_dedup(
     return hits & ref.emit_mask(vids, wids, wcells, cell_id, cross=cross)
 
 
+def plain_hits(x: Tensor, y: Tensor, delta: float, metric: str) -> Tensor:
+    """``D <= delta`` by the plain path, for one tile (a, m) x (b, m) or a
+    batch of tiles (B, a, m) x (B, b, m)."""
+    if metric in ref.METRICS:
+        return ref.pairdist_mask(x, y, delta, metric)
+    return distances.pairwise(x, y, metric) <= delta
+
+
 def tile_hits(
     xv: Tensor,
     xw: Tensor,
@@ -141,30 +162,66 @@ def tile_hits(
     """One tile's raw hit mask (a, b): (filter,) distances and threshold,
     before validity and de-dup.
 
-    ``backend``/``prune`` must be resolved. With ``prune="pivot"`` the hits
-    are ANDed with the L∞ bound survivor mask — identical output (the bound
-    never prunes a hit); the kernel recomputes the bound per block to skip
-    exact work, the plain path reuses ``premask`` when given.
+    ``backend``/``prune`` must be resolved ("window" tiles pass "none").
+    With ``prune="pivot"`` the hits are ANDed with the L∞ bound survivor
+    mask — identical output (the bound never prunes a hit); the kernel
+    recomputes the bound per block to skip exact work, the plain path
+    reuses ``premask`` when given.
     """
     if prune == "pivot":
         assert pv is not None and pw is not None, 'prune="pivot" without coords'
         if backend == "cuda":
-            hits = kops.pairdist_mask_filtered(
+            return kops.pairdist_mask_filtered(
                 xv, xw, pv, pw, delta, metric, delta_bound=delta_bound, backend="cuda"
             )
-        else:
-            bound = premask if premask is not None else ref.bound_mask(pv, pw, delta, delta_bound)
-            if metric in ref.METRICS:
-                hits = ref.pairdist_mask(xv, xw, delta, metric) & bound
-            else:
-                hits = (distances.pairwise(xv, xw, metric) <= delta) & bound
-    elif backend == "cuda":
-        hits = kops.pairdist_mask(xv, xw, delta, metric, backend="cuda")
-    elif metric in ref.METRICS:
-        hits = ref.pairdist_mask(xv, xw, delta, metric)
+        bound = premask if premask is not None else ref.bound_mask(pv, pw, delta, delta_bound)
+        return plain_hits(xv, xw, delta, metric) & bound
+    if backend == "cuda":
+        return kops.pairdist_mask(xv, xw, delta, metric, backend="cuda")
+    return plain_hits(xv, xw, delta, metric)
+
+
+def verify_tile_compact(
+    xv: Tensor,
+    xw: Tensor,
+    vids: Tensor,
+    wids: Tensor,
+    wcells: Tensor | None,
+    cell_id: int,
+    *,
+    delta: float,
+    metric: str,
+    backend: str,
+    capacity: int,
+    cross: bool = False,
+    pv: Tensor | None = None,
+    pw: Tensor | None = None,
+    prune: str = "none",
+    delta_bound: float | None = None,
+) -> tuple[Tensor, Tensor]:
+    """One tile's fused verify + pair compaction (reference
+    ``verify_tile_compact``): the verify side of :func:`tile_hits` plus
+    validity and the min-cell rule, compacted into a (capacity, 2) int32
+    buffer of GLOBAL id pairs padded with -1 (order unspecified). Returns
+    ``(pairs, counts)`` with ``counts`` (2,) int32 = ``[count, n_cand]``:
+    the TRUE number of emitted pairs (``count > capacity`` is the overflow
+    sentinel) and the pivot-filter survivors (valid pairs when unpruned) —
+    read back together, the tile's one read."""
+    if prune == "pivot":
+        assert pv is not None and pw is not None, 'prune="pivot" without coords'
     else:
-        hits = distances.pairwise(xv, xw, metric) <= delta
-    return hits
+        pv = pw = None
+    if backend == "cuda":
+        pairs, count, n_cand = kops.verify_compact(
+            xv, xw, vids, wids, wcells, cell_id, pv, pw, delta=delta, metric=metric,
+            capacity=capacity, cross=cross, delta_bound=delta_bound, backend="cuda",
+        )
+    else:
+        pairs, count, n_cand = ref.verify_compact(
+            xv, xw, vids, wids, wcells, cell_id, delta=delta, metric=metric,
+            capacity=capacity, cross=cross, px=pv, py=pw, delta_bound=delta_bound,
+        )
+    return pairs, torch.stack([count, n_cand])
 
 
 def resolve_engine_backend(backend: str, metric: str, x: Tensor) -> str:
@@ -182,8 +239,8 @@ def prune_supported(metric: str) -> bool:
 
 
 def resolve_prune(prune: str, metric: str, have_coords: bool) -> str:
-    """Resolve a prune request to "none" | "pivot"; an unsound metric falls
-    back to "none", pruning without coordinates raises."""
+    """Resolve a prune request to "none" | "pivot" | "window"; an unsound
+    metric falls back to "none", pruning without coordinates raises."""
     if prune not in ("none", "pivot", "window"):
         raise ValueError(
             f'unknown prune mode {prune!r}; expected "none" | "pivot" | "window"'
@@ -194,20 +251,16 @@ def resolve_prune(prune: str, metric: str, have_coords: bool) -> str:
         )
     if prune != "none" and not prune_supported(metric):
         return "none"
-    if prune == "window":
-        raise NotImplementedError(f'prune="window" {_NOT_PORTED}')
     return prune
 
 
 def resolve_emit(emit: str, metric: str) -> str:
-    """Resolve an emission request; reference-only metrics resolve compact
-    back to "mask" as in the reference, compact itself is not ported."""
+    """Resolve an emission request to "mask" | "compact"; metrics without a
+    kernel resolve compact back to "mask" (capability, not error)."""
     if emit not in ("mask", "compact"):
         raise ValueError(f'unknown emit mode {emit!r}; expected "mask" | "compact"')
     if emit == "compact" and metric not in ref.METRICS:
         return "mask"
-    if emit == "compact":
-        raise NotImplementedError(f'emit="compact" {_NOT_PORTED}')
     return emit
 
 
@@ -231,6 +284,89 @@ def bucket_size(n: int, cap: int, floor: int = 8) -> int:
     octave = 1 << max(n - 1, 0).bit_length()  # smallest pow2 >= n
     quantum = max(octave // 4, floor)
     return min(cap, -(-n // quantum) * quantum)
+
+
+# --- Compact-emission capacity sizing (the reference's knobs) --------------
+#
+# The pair buffer's capacity rides the quarter-pow2 bucket ladder. It is
+# seeded from the cost model's bound-survival estimate (an overestimate of
+# the hit rate, hence a conservative buffer), padded by a slack factor,
+# floored, and grown online from observed per-tile counts. Module-level on
+# purpose: tests monkeypatch them to force the overflow ladder.
+
+DEFAULT_EMIT_RATE = 0.05  # prior hit fraction when no coordinate sample exists
+EMIT_SLACK = 2.0  # capacity head-room multiplier over the estimated rate
+_EMIT_FLOOR = 32  # minimum pre-bucket capacity, absorbs tiny-tile noise
+_EMIT_SAMPLE = 256  # rows fed to the survival estimate (O(sample^2) pairs)
+_MAX_OVERFLOW_RETRIES = 3  # capacity doublings before the mask-path fallback
+
+# --- Batched window dispatch (plain path) ----------------------------------
+#
+# prune="window" cuts tiles small by design, so the plain path defers its
+# tiles and verifies every same-bucket batch in one batched call (the
+# reference's jit(vmap), written out as a batch dimension): one dispatch
+# and one nonzero per bucket shape per flush. The area cap bounds resident
+# mask memory; emission order does not matter (the final sort+unique
+# canonicalizes), so flushing early is always safe.
+
+_BATCH_FLUSH_AREA = 1 << 24  # max summed mask elements resident per flush
+
+
+def _estimate_emit_rate(coords, delta: float) -> float:
+    """Survival-rate prior for compact capacity sizing: the cost model's
+    pivot-pair bound-survival fraction over a deterministic row subsample
+    (an OVERestimate of the hit rate — the L∞ bound admits every hit)."""
+    n = coords.shape[0]
+    k = min(n, _EMIT_SAMPLE)
+    if k < 2:
+        return 1.0
+    idx = np.linspace(0, n - 1, k).astype(np.int64)
+    if isinstance(coords, Tensor):
+        sample = coords[torch.as_tensor(idx, device=coords.device)].cpu().numpy()
+    else:
+        sample = np.asarray(coords)[idx]
+    rate = cost_model.estimate_survival_rate(sample.astype(np.float32), delta)
+    return float(min(max(rate, 1.0 / (k * k)), 1.0))
+
+
+def _pad0(t: Tensor, cap: int, value) -> Tensor:
+    """``t`` padded along dim 0 to ``cap`` rows of ``value``."""
+    if t.shape[0] == cap:
+        return t
+    fill = torch.full((cap - t.shape[0], *t.shape[1:]), value, dtype=t.dtype, device=t.device)
+    return torch.cat([t, fill])
+
+
+def _flush_window_batch(
+    pending: list[tuple],
+    delta: float,
+    metric: str,
+    cross: bool,
+    stats: VerifyStats,
+    chunks: list[Tensor],
+    return_pairs: bool,
+) -> None:
+    """Verify the deferred window tiles: stack the same-bucket tiles padded
+    to their bucket shape (ids -1), one batched plain verify per bucket
+    shape, one ``nonzero``, then the emission rule on the hit list."""
+    groups: dict[tuple[int, int], list[tuple]] = {}
+    for t in pending:
+        groups.setdefault((t[6], t[7]), []).append(t)
+    for (cap_v, cap_w), tiles in groups.items():
+        xv = torch.stack([_pad0(t[0], cap_v, 0.0) for t in tiles])
+        xw = torch.stack([_pad0(t[1], cap_w, 0.0) for t in tiles])
+        vids = torch.stack([_pad0(t[2], cap_v, -1) for t in tiles])
+        wids = torch.stack([_pad0(t[3], cap_w, -1) for t in tiles])
+        hs = torch.as_tensor([t[5] for t in tiles], device=xv.device)
+        bi, vi, wi = torch.nonzero(plain_hits(xv, xw, delta, metric), as_tuple=True)
+        vh, wh = vids[bi, vi], wids[bi, wi]
+        wch = None if cross else torch.stack([_pad0(t[4], cap_w, -1) for t in tiles])[bi, wi]
+        keep = ref.emit_keep(vh, wh, wch, hs[bi], cross)
+        vh, wh = vh[keep], wh[keep]
+        stats.n_hits += int(vh.numel())
+        if return_pairs and vh.numel():
+            chunks.append(torch.stack([vh, wh], dim=1))
+    pending.clear()
 
 
 def _as_rows(x, device: torch.device | None = None) -> Tensor:
@@ -259,15 +395,15 @@ def verify_cell_lists(
     """Run the full reduce phase over explicit per-cell index sets.
 
     ``data``: (N, m) objects (tensor; its device is where the engine runs);
-    ``cells_of``: (N,) kernel cell per object; ``v_lists[h]`` /
-    ``w_lists[h]``: global row indices of V_h / W_h (host arrays). Returns
-    (pairs (n_pairs, 2) int64 sorted unique, stats). ``data_w`` switches to
-    R×S (``w_lists`` then index ``data_w``). ``coords`` / ``coords_w``: the
-    mapped coordinates, required for ``prune="pivot"``.
+    ``cells_of``: (N,) kernel cell per object (read only in a self-join);
+    ``v_lists[h]`` / ``w_lists[h]``: global row indices of V_h / W_h (host
+    arrays). Returns (pairs (n_pairs, 2) int64 sorted unique, stats).
+    ``data_w`` switches to R×S (``w_lists`` then index ``data_w``).
+    ``coords`` / ``coords_w``: the mapped coordinates, required for
+    ``prune`` "pivot" | "window".
     """
     data_t = _as_rows(data)
     device = data_t.device
-    cells_np = _host(cells_of)
     cross = data_w is not None
     data_w_t = _as_rows(data_w, device) if cross else data_t
     backend = resolve_engine_backend(config.backend, metric, data_t)
@@ -279,10 +415,31 @@ def verify_cell_lists(
         coords_t = _as_rows(coords, device)
         coords_w_t = _as_rows(coords_w, device) if cross else coords_t
         # One host copy of the coordinates for the control plane.
-        coords_np = coords_t.cpu().numpy()
-        coords_w_np = coords_w_t.cpu().numpy() if cross else coords_np
+        coords_np = _host(coords_t)
+        coords_w_np = _host(coords_w_t) if cross else coords_np
         delta_bound = prune_band(delta, metric, data_t, data_w_t if cross else None)
-    cells_t = None if cross else torch.as_tensor(cells_np, device=device).to(torch.int64)
+    # Which tiles carry the on-device pair buffer (the reference's rule with
+    # "cuda" for "pallas"): the kernel backend always; the plain path only
+    # under "pivot", where the buffer's counters carry the survivor count.
+    # Everything else lowers compact emission to the mask dispatch.
+    buffered = emit == "compact" and (backend == "cuda" or prune == "pivot")
+    # Batched window dispatch on the plain path (_flush_window_batch); the
+    # kernel path launches per tile.
+    batch_w = prune == "window" and backend != "cuda"
+    pending: list[tuple] = []
+    pending_area = 0
+    emit_rate = DEFAULT_EMIT_RATE
+    if buffered:
+        if max(data_t.shape[0], data_w_t.shape[0]) >= 2**31:
+            raise ValueError('emit="compact" carries int32 ids: at most 2**31 - 1 rows')
+        if coords is not None:
+            emit_rate = _estimate_emit_rate(
+                coords, float(delta_bound if delta_bound is not None else delta)
+            )
+    cells_t = None
+    if not cross:
+        cells_t = cells_of if isinstance(cells_of, Tensor) else torch.from_numpy(np.array(cells_of))
+        cells_t = cells_t.to(device=device, dtype=torch.int64)
     stats = VerifyStats(prune=prune, emit=emit)
     chunks: list[Tensor] = []
 
@@ -311,9 +468,12 @@ def verify_cell_lists(
         v_rows = data_t.index_select(0, v_ids)
         w_rows = data_w_t.index_select(0, w_ids)
         w_cells = None if cross else cells_t.index_select(0, w_ids)
+        if buffered:  # the kernel's int32 ids (checked above: all < 2**31)
+            v_ids, w_ids = v_ids.to(torch.int32), w_ids.to(torch.int32)
+            w_cells = None if cross else w_cells.to(torch.int32)
         if prune == "pivot":
-            v_pc = coords_t.index_select(0, v_ids)
-            w_pc = coords_w_t.index_select(0, w_ids)
+            v_pc = coords_t.index_select(0, v_ids.long())
+            w_pc = coords_w_t.index_select(0, w_ids.long())
         w_tiles = None
         if prune == "none":
             w_tiles = [
@@ -355,12 +515,16 @@ def verify_cell_lists(
                         continue
                 vids = v_ids[v0:v1]
                 wids = w_ids[w0:w1]
+                wcs = None if cross else w_cells[w0:w1]
                 pv = pw = premask = None
                 if prune == "pivot":
                     pv, pw = v_pc[v0:v1], w_pc[w0:w1]
-                    # Every row of these tiles is real (no padding), so the
-                    # candidates are the bound survivors: one broadcast over
-                    # the few mapped dimensions.
+                if emit == "mask" and prune == "pivot":
+                    # Candidate pre-pass (every row of these tiles is real, so
+                    # the candidates are the bound survivors): one broadcast
+                    # over the few mapped dimensions. Compact emission skips
+                    # it — its filter runs in the tile and the survivor count
+                    # comes back in-band.
                     cand = (pv[:, None, :] - pw[None, :, :]).abs_().amax(-1) <= delta_bound
                     # The whole-tile skip decision is a device->host read.
                     n_cand = int(cand.sum())
@@ -374,22 +538,80 @@ def verify_cell_lists(
                 stats.n_padded += cap_v * cap_w
                 stats.n_dispatched += n_valid
                 stats.bucket_shapes.add((cap_v, cap_w))
-                hits = tile_hits(
-                    v_rows[v0:v1], w_rows[w0:w1],
-                    delta=float(delta), metric=metric, backend=backend,
-                    pv=pv, pw=pw, prune=prune, premask=premask,
-                    delta_bound=delta_bound if prune == "pivot" else None,
-                )
+                if batch_w:
+                    pending.append((v_rows[v0:v1], w_rows[w0:w1], vids, wids, wcs, h, cap_v, cap_w))
+                    pending_area += cap_v * cap_w
+                    if pending_area >= _BATCH_FLUSH_AREA:
+                        _flush_window_batch(
+                            pending, float(delta), metric, cross, stats, chunks, return_pairs
+                        )
+                        pending_area = 0
+                    continue
+                # "window" prunes on the host (above); its tile runs the
+                # plain verify — no per-pair bound.
+                tile_prune = "pivot" if prune == "pivot" else "none"
+                tile_band = delta_bound if tile_prune == "pivot" else None
+                mode = "compact" if buffered else "mask"
+                cap_pairs = 0
+                if mode == "compact":
+                    cap_pairs = bucket_size(
+                        int(n_valid * min(emit_rate * EMIT_SLACK, 1.0)) + _EMIT_FLOOR,
+                        cap_v * cap_w,
+                    )
+                tile_counts = None
+                for attempt in range(_MAX_OVERFLOW_RETRIES + 2):
+                    if mode != "compact":
+                        hits = tile_hits(
+                            v_rows[v0:v1], w_rows[w0:w1],
+                            delta=float(delta), metric=metric, backend=backend,
+                            pv=pv, pw=pw, prune=tile_prune, premask=premask,
+                            delta_bound=tile_band,
+                        )
+                        break
+                    pairs_dev, counts_dev = verify_tile_compact(
+                        v_rows[v0:v1], w_rows[w0:w1], vids, wids, wcs, h,
+                        delta=float(delta), metric=metric, backend=backend,
+                        capacity=cap_pairs, cross=cross, pv=pv, pw=pw,
+                        prune=tile_prune, delta_bound=tile_band,
+                    )
+                    tile_counts = tuple(counts_dev.tolist())  # the tile's one read
+                    if tile_counts[0] <= cap_pairs:
+                        break
+                    # Overflow sentinel: the buffer is unspecified but the
+                    # count is the TRUE total, so the retry bucket is sized
+                    # in one step. Bounded retries, then the mask path.
+                    stats.n_overflow_retries += 1
+                    if attempt >= _MAX_OVERFLOW_RETRIES:
+                        mode = "mask"
+                    else:
+                        cap_pairs = bucket_size(max(tile_counts[0], 2 * cap_pairs), cap_v * cap_w)
+                if mode == "compact":
+                    count, n_cand = tile_counts
+                    if prune == "pivot":
+                        stats.n_pruned += n_valid - n_cand
+                    # Grow the prior from observed hit rates so one hot tile
+                    # does not turn into a retry per tile downstream.
+                    emit_rate = max(emit_rate, count / max(n_valid, 1))
+                    stats.n_hits += count
+                    if return_pairs and count:
+                        chunks.append(pairs_dev[:count].to(torch.int64))
+                    continue
+                if tile_counts is not None and prune == "pivot":
+                    # Overflow fallback: the last compact launch already
+                    # reported the survivor count.
+                    stats.n_pruned += n_valid - tile_counts[1]
                 # Hits are sparse: compact first (the one readback of the
                 # tile), then apply the emission rule to the hit list only.
                 vi, wi = torch.nonzero(hits, as_tuple=True)
-                vh, wh = vids[vi], wids[wi]
-                keep = ref.emit_keep(vh, wh, None if cross else w_cells[w0:w1][wi], h, cross)
+                vh, wh = vids[vi].long(), wids[wi].long()
+                keep = ref.emit_keep(vh, wh, None if cross else wcs[wi], h, cross)
                 vh, wh = vh[keep], wh[keep]
                 stats.n_hits += int(vh.numel())
                 if return_pairs and vh.numel():
                     chunks.append(torch.stack([vh, wh], dim=1))
 
+    if pending:
+        _flush_window_batch(pending, float(delta), metric, cross, stats, chunks, return_pairs)
     if not chunks:
         return np.zeros((0, 2), np.int64), stats
     # Each pair is emitted once; sort+unique canonicalizes the order (and
@@ -399,6 +621,33 @@ def verify_cell_lists(
         pairs = torch.sort(pairs, dim=1).values
     pairs = torch.unique(pairs, dim=0)
     return pairs.cpu().numpy().astype(np.int64), stats
+
+
+def verify_resident(
+    data,
+    cells_of,
+    v_lists: Sequence[np.ndarray],
+    member_w,
+    delta: float,
+    metric: str,
+    *,
+    config: EngineConfig = EngineConfig(),
+    data_w,
+    coords=None,
+    coords_w=None,
+) -> tuple[np.ndarray, VerifyStats]:
+    """Delta-vs-resident cross verify: W rows come from a whole-membership
+    matrix (|W|, p) over ``data_w`` (a routed query batch or an insertion
+    delta), V rows from the RESIDENT per-cell index lists — the one tile
+    path both ``MetricIndex.query_batch`` and ``insert_batch`` stream
+    through. Pairs come back as (i ∈ resident, j ∈ delta), R×S semantics.
+    """
+    member_np = _host(member_w).astype(bool)
+    w_lists = [np.flatnonzero(member_np[:, h]) for h in range(len(v_lists))]
+    return verify_cell_lists(
+        data, cells_of, v_lists, w_lists, delta, metric,
+        config=config, data_w=data_w, coords=coords, coords_w=coords_w,
+    )
 
 
 def verify_pairs(

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("pairdist", "mapassign")
+SOURCES = ("pairdist", "mapassign", "compact")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,9 @@ _SIGNATURES = {
     },
     "mapassign": {
         "map_assign_launch": [_P] * 9 + [_I] * 8 + [_P],
+    },
+    "compact": {
+        "verify_compact_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I] + [_P] * 3,
     },
 }
 
@@ -132,6 +135,16 @@ def check_inputs(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: expected contiguous 2-D float32, got {t.dtype} {tuple(t.shape)}"
             )
+
+
+def check_ids(name: str, *ts: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous 1-D int32 CUDA tensor (the
+    kernels' id vectors; int32 holds every id below 2**31)."""
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous 1-D int32 ids, got {t.dtype} {tuple(t.shape)}")
 
 
 def stream_ptr(device) -> int:

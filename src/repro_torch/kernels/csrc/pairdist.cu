@@ -5,47 +5,22 @@
 // L-inf pivot bound max_p|px-py|, a whole-tile skip of the exact work when
 // no pair survives the bound, and the int8 mask (D<=delta) & (bound<=db)).
 //
-// Design. One CTA of 256 threads per 64x64 output tile; each thread owns a
-// 4x4 micro-tile strided by 16 in both directions (rows ty+16i, columns
-// tx+16j), so the shared-memory reads of a warp are broadcasts on the x side
-// and 16 consecutive words on the y side. The Pallas grid's sequential
-// feature axis becomes a loop inside the CTA over 16-feature chunks staged
-// in shared memory (rows padded to 65 words against bank conflicts); the
-// accumulator stays in registers and the (a, b, m) intermediate never
-// exists. The CTA masks its own ragged edges: out-of-range rows and
-// features stage as 0, which is exact for every metric. The filtered
-// variant first runs the same loop over the pivot coordinates with the
-// L-inf step (bp is small: n_dims), decides with __syncthreads_or whether
-// any in-range pair of the tile survives, and otherwise writes zeros and
-// skips the feature loop.
+// Design. The 64x64 CTA tile of tilecore.cuh (4x4 register micro-tile per
+// thread, 16-feature shared-memory chunks; the Pallas grid's sequential
+// feature axis becomes the loop inside the CTA, and the (a, b, m)
+// intermediate never exists). The CTA masks its own ragged edges. The
+// filtered variant first runs the bound pass over the pivot coordinates
+// (bp is small: n_dims), decides with __syncthreads_or whether any
+// in-range pair of the tile survives, and otherwise writes zeros and skips
+// the feature loop.
 //
 // Bound. l1/linf are two fp32 instructions per pair-feature on the CUDA
 // cores, l2/cosine/dot one FMA: the kernel is bound by operations at the
 // verify engine's tile shapes (1024 x 4096 x 128: 0.5 G pair-features per
 // 20 MB moved). The 64x64x16 staging gives 64 flops per shared word loaded.
-#include "distcore.cuh"
+#include "tilecore.cuh"
 
 namespace repro_torch {
-
-constexpr int kTile = 64;
-constexpr int kChunk = 16;
-constexpr int kThreads = 256;
-constexpr int kPad = kTile + 1;
-
-// Stage rows [r0, r0+64) x features [k0, k0+16) of a row-major (n, width)
-// matrix into s[feature][row], zero-filling everything out of range.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ src, int r0,
-                                            int n, int width, int k0,
-                                            float (*s)[kPad]) {
-#pragma unroll
-  for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
-    const int r = e / kChunk;
-    const int k = e % kChunk;
-    const int row = r0 + r;
-    const int col = k0 + k;
-    s[k][r] = (row < n && col < width) ? src[static_cast<size_t>(row) * width + col] : 0.0f;
-  }
-}
 
 template <int METRIC, bool FILTERED>
 __global__ void __launch_bounds__(kThreads)
@@ -54,49 +29,16 @@ pairdist_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 float* __restrict__ out_f, int8_t* __restrict__ out_m, int a,
                 int b, int m, int bp, int has_delta, float delta,
                 float delta_bound) {
-  __shared__ float xs[kChunk][kPad];
-  __shared__ float ys[kChunk][kPad];
-  __shared__ float xn_s[kTile];
-  __shared__ float yn_s[kTile];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  __shared__ TileSmem s;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
   const int r0 = blockIdx.y * kTile;
   const int c0 = blockIdx.x * kTile;
 
   float bound[4][4];
   if (FILTERED) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bound[i][j] = 0.0f;
-    for (int k0 = 0; k0 < bp; k0 += kChunk) {
-      stage_chunk(px, r0, a, bp, k0, xs);
-      stage_chunk(py, c0, b, bp, k0, ys);
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xv = xs[k][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            bound[i][j] = fmaxf(bound[i][j], fabsf(xv - ys[k][tx + 16 * j]));
-        }
-      }
-      __syncthreads();
-    }
-    int live = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = r0 + ty + 16 * i;
-        const int col = c0 + tx + 16 * j;
-        if (row < a && col < b && bound[i][j] <= delta_bound) live = 1;
-      }
-    if (!__syncthreads_or(live)) {
+    tile_bound(px, py, a, b, bp, r0, c0, s, bound);
+    if (!tile_live(bound, a, b, r0, c0, delta_bound)) {
       // Whole-tile skip: every pair fails the bound, so the mask is 0.
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -110,63 +52,23 @@ pairdist_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
   }
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  float norm = 0.0f;  // l2: row norm of x row tid (tid < 64) or y row tid-64
-
-  for (int k0 = 0; k0 < m; k0 += kChunk) {
-    stage_chunk(x, r0, a, m, k0, xs);
-    stage_chunk(y, c0, b, m, k0, ys);
-    __syncthreads();
-    if (METRIC == kL2 && tid < 2 * kTile) {
-      float (*s)[kPad] = tid < kTile ? xs : ys;
-      const int r = tid % kTile;
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) norm = fmaf(s[k][r], s[k][r], norm);
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      float xv[4], yv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yv[j] = ys[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = dist_step<METRIC>(acc[i][j], xv[i], yv[j]);
-    }
-    __syncthreads();
-  }
-  if (METRIC == kL2) {
-    if (tid < kTile) xn_s[tid] = norm;
-    else if (tid < 2 * kTile) yn_s[tid - kTile] = norm;
-    __syncthreads();
-  }
-
+  float d[4][4];
+  tile_distances<METRIC>(x, y, a, b, m, r0, c0, s, d);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int rl = ty + 16 * i;
-    const int row = r0 + rl;
+    const int row = r0 + ty + 16 * i;
     if (row >= a) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int cl = tx + 16 * j;
-      const int col = c0 + cl;
+      const int col = c0 + tx + 16 * j;
       if (col >= b) continue;
-      const float xn = METRIC == kL2 ? xn_s[rl] : 0.0f;
-      const float yn = METRIC == kL2 ? yn_s[cl] : 0.0f;
-      const float d = dist_finalize<METRIC>(acc[i][j], xn, yn);
       const size_t o = static_cast<size_t>(row) * b + col;
       if (FILTERED) {
-        out_m[o] = (d <= delta && bound[i][j] <= delta_bound) ? 1 : 0;
+        out_m[o] = (d[i][j] <= delta && bound[i][j] <= delta_bound) ? 1 : 0;
       } else if (has_delta) {
-        out_m[o] = d <= delta ? 1 : 0;
+        out_m[o] = d[i][j] <= delta ? 1 : 0;
       } else {
-        out_f[o] = d;
+        out_f[o] = d[i][j];
       }
     }
   }

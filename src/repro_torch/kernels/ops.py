@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import compact as _compact
 from repro_torch.kernels import mapassign as _mapassign
 from repro_torch.kernels import pairdist as _pairdist
 from repro_torch.kernels import ref
@@ -50,11 +51,11 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_pairdist.LAUNCHES, **_mapassign.LAUNCHES}
+    return {**_pairdist.LAUNCHES, **_mapassign.LAUNCHES, **_compact.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pairdist.LAUNCHES, _mapassign.LAUNCHES):
+    for counts in (_pairdist.LAUNCHES, _mapassign.LAUNCHES, _compact.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -145,6 +146,80 @@ def pairdist_mask_filtered(
         xp, yp, px.float().contiguous(), py.float().contiguous(), metric,
         float(delta), float(delta_bound),
     ).bool()
+
+
+def _ids32(ids: Tensor) -> Tensor:
+    """Ids as contiguous int32 (-1 = padding); raises on ids >= 2**31. An
+    int32 input needs no check, so the engine's int32 ids cost no read."""
+    if ids.dtype != torch.int32:
+        if ids.numel() and int(ids.max()) >= 2**31:
+            raise ValueError("verify_compact: ids must be below 2**31")
+        ids = ids.to(torch.int32)
+    return ids.contiguous()
+
+
+def verify_compact(
+    x: Tensor,
+    y: Tensor,
+    vids: Tensor,
+    wids: Tensor,
+    wcells: Tensor | None,
+    cell_id: int,
+    px: Tensor | None = None,
+    py: Tensor | None = None,
+    *,
+    delta: float,
+    metric: str,
+    capacity: int,
+    cross: bool = False,
+    delta_bound: float | None = None,
+    backend: str = "auto",
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Fused single-launch reduce step: (filter,) distance, threshold,
+    validity + min-cell de-dup, and on-device pair compaction.
+
+    ``vids`` / ``wids`` / ``wcells``: (a,) / (b,) ids with padding = -1
+    (``wcells`` unused when ``cross``); ``cell_id`` the verified cell,
+    passed at run time. With ``px``/``py`` (mapped coordinates) the pivot
+    bound is fused in front of the exact distance (prunable metrics only;
+    ``delta_bound`` defaults to ``ref.prune_delta``).
+
+    Returns ``(pairs, count, n_cand)``: ``pairs`` (capacity, 2) int32 id
+    pairs padded with -1, ``count`` 0-d int32, the TRUE hit total
+    (``count > capacity`` is overflow: the caller retries bigger),
+    ``n_cand`` 0-d int32, the bound survivors among valid pairs (all valid
+    pairs when unfiltered). Pair ORDER differs between backends (row-major
+    on "torch", CTA order on "cuda"); callers sort. Plain version:
+    ``ref.verify_compact``.
+    """
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    if px is not None:
+        if not supports_prune(metric):
+            raise ValueError(
+                f"pivot filter is unsound for {metric!r} (needs the triangle "
+                f"inequality); prunable kernel metrics: {PRUNABLE_METRICS}"
+            )
+        if delta_bound is None:
+            delta_bound = ref.prune_delta(delta, metric)
+    if resolve_backend(backend, metric, x) == "torch":
+        return ref.verify_compact(
+            x, y, vids, wids, wcells, cell_id, delta=delta, metric=metric,
+            capacity=capacity, cross=cross, px=px, py=py, delta_bound=delta_bound,
+        )
+    a, b = x.shape[0], y.shape[0]
+    if a == 0 or b == 0:  # empty tile: nothing to launch
+        zero = torch.zeros((), dtype=torch.int32, device=x.device)
+        return torch.full((capacity, 2), -1, dtype=torch.int32, device=x.device), zero, zero
+    xp, yp = _prep(x, y, metric)
+    prune = px is not None
+    pairs, counts = _compact.verify_compact_cuda(
+        xp, yp, _ids32(vids), _ids32(wids), None if cross else _ids32(wcells), int(cell_id),
+        px.float().contiguous() if prune else None, py.float().contiguous() if prune else None,
+        metric=metric, delta=float(delta),
+        delta_bound=float(delta_bound) if prune else 0.0, capacity=capacity, cross=cross,
+    )
+    return pairs, counts[0], counts[1]
 
 
 # ---------------------------------------------------------------------------

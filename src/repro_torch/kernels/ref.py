@@ -9,6 +9,8 @@ row chunks so the (a, b, m) broadcast stays bounded.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -26,37 +28,54 @@ def _normalize(x: Tensor) -> Tensor:
 
 
 def _absdiff_reduce(x: Tensor, y: Tensor, op: str) -> Tensor:
-    a, b, m = x.shape[0], y.shape[0], x.shape[1]
-    out = torch.empty((a, b), dtype=torch.float32, device=x.device)
-    if a == 0 or b == 0:
-        return out
+    """(..., a, m) against (..., b, m) -> (..., a, b): the sum or max of
+    |x - y| over features, in (batch, row, column) blocks of at most
+    ``_BROADCAST_ELEMS`` broadcast elements."""
+    lead = x.shape[:-2]
+    a, b, m = x.shape[-2], y.shape[-2], x.shape[-1]
+    n = math.prod(lead)
+    x3 = x.reshape(n, a, m)
+    y3 = y.reshape(n, b, m)
+    out = torch.empty((n, a, b), dtype=torch.float32, device=x.device)
+    if n == 0 or a == 0 or b == 0:
+        return out.reshape(*lead, a, b)
     cols = min(b, _BROADCAST_COLS)
     rows = max(1, _BROADCAST_ELEMS // (cols * max(m, 1)))
-    for i0 in range(0, a, rows):
-        for j0 in range(0, b, cols):
-            diff = (x[i0 : i0 + rows, None, :] - y[None, j0 : j0 + cols, :]).abs_()
-            blk = diff.sum(-1) if op == "sum" else diff.amax(-1)
-            out[i0 : i0 + rows, j0 : j0 + cols] = blk
-    return out
+    batch = max(1, _BROADCAST_ELEMS // (min(rows, a) * cols * max(m, 1)))
+    for t0 in range(0, n, batch):
+        for i0 in range(0, a, rows):
+            for j0 in range(0, b, cols):
+                diff = (
+                    x3[t0 : t0 + batch, i0 : i0 + rows, None, :]
+                    - y3[t0 : t0 + batch, None, j0 : j0 + cols, :]
+                ).abs_()
+                blk = diff.sum(-1) if op == "sum" else diff.amax(-1)
+                out[t0 : t0 + batch, i0 : i0 + rows, j0 : j0 + cols] = blk
+    return out.reshape(*lead, a, b)
 
 
 def pairdist(x: Tensor, y: Tensor, metric: str = "l2") -> Tensor:
-    """All-pairs distances, x: (a, m), y: (b, m) -> (a, b) float32."""
+    """All-pairs distances, x: (..., a, m), y: (..., b, m) -> (..., a, b)
+    float32 (leading dimensions are a batch of independent tiles)."""
     x = x.float()
     y = y.float()
     if metric == "l1":
         return _absdiff_reduce(x, y, "sum")
     if metric == "linf":
-        if x.shape[1] == 0:
-            return torch.zeros((x.shape[0], y.shape[0]), device=x.device)
+        if x.shape[-1] == 0:
+            return torch.zeros((*x.shape[:-1], y.shape[-2]), device=x.device)
         return _absdiff_reduce(x, y, "max")
     if metric == "l2":
-        sq = (x * x).sum(-1)[:, None] + (y * y).sum(-1)[None, :] - 2.0 * (x @ y.T)
+        sq = (
+            (x * x).sum(-1)[..., :, None]
+            + (y * y).sum(-1)[..., None, :]
+            - 2.0 * (x @ y.transpose(-1, -2))
+        )
         return torch.sqrt(torch.clamp(sq, min=0.0))
     if metric == "cosine":
-        return 1.0 - _normalize(x) @ _normalize(y).T
+        return 1.0 - _normalize(x) @ _normalize(y).transpose(-1, -2)
     if metric == "dot":
-        return x @ y.T
+        return x @ y.transpose(-1, -2)
     raise ValueError(f"unknown metric {metric!r}")
 
 
@@ -172,6 +191,72 @@ def emit_mask(
     return emit_keep(
         vids[:, None], wids[None, :], None if cross else wcells[None, :], cell_id, cross
     )
+
+
+def compact_mask(
+    mask: Tensor, vids: Tensor, wids: Tensor, capacity: int
+) -> tuple[Tensor, Tensor]:
+    """Compaction of an (a, b) hit mask into a fixed-capacity pair buffer.
+
+    Returns ``(pairs, count)``: ``pairs`` is (capacity, 2) int32 holding
+    ``(vids[i], wids[j])`` for the True cells of ``mask`` in row-major
+    (``nonzero``) order, padded with -1; ``count`` is a 0-d int32 tensor
+    equal to the TRUE number of hits — ``count > capacity`` signals
+    overflow, and the buffer then holds the first ``capacity`` hits (the
+    CUDA kernel fills it in another order; callers treat it as unspecified
+    and retry at a larger capacity).
+    """
+    pairs = torch.full((capacity, 2), -1, dtype=torch.int32, device=mask.device)
+    b = mask.shape[1]
+    flat = torch.nonzero(mask.reshape(-1), as_tuple=True)[0]
+    count = torch.tensor(flat.numel(), dtype=torch.int32, device=mask.device)
+    pos = flat[:capacity]
+    k = pos.numel()
+    if k:
+        pairs[:k, 0] = vids.to(torch.int32)[pos // b]
+        pairs[:k, 1] = wids.to(torch.int32)[pos % b]
+    return pairs, count
+
+
+def verify_compact(
+    x: Tensor,
+    y: Tensor,
+    vids: Tensor,
+    wids: Tensor,
+    wcells: Tensor | None,
+    cell_id: int,
+    *,
+    delta: float,
+    metric: str,
+    capacity: int,
+    cross: bool = False,
+    px: Tensor | None = None,
+    py: Tensor | None = None,
+    delta_bound: float | None = None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Fused verify + pair compaction, the plain version of the
+    ``verify_compact`` kernel.
+
+    One tile's reduce step: (optional) pivot-filter bound, exact distance,
+    ``<= delta``, validity + min-cell de-dup (:func:`emit_mask`), then
+    :func:`compact_mask` into a (capacity, 2) int32 id-pair buffer. Returns
+    ``(pairs, count, n_cand)``: ``count`` the TRUE hit total, ``n_cand`` the
+    valid pairs that survive the bound (all valid pairs without ``px``) —
+    the quantity the mask path's candidate pre-pass counts, so the pruning
+    telemetry does not depend on the emission mode.
+    """
+    valid = (vids[:, None] >= 0) & (wids[None, :] >= 0)
+    hits = pairdist_mask(x, y, delta, metric)
+    if px is not None:
+        assert py is not None
+        bound = bound_mask(px, py, delta, delta_bound)
+        n_cand = (bound & valid).sum().to(torch.int32)
+        hits = hits & bound
+    else:
+        n_cand = valid.sum().to(torch.int32)
+    hits = hits & emit_mask(vids, wids, wcells, cell_id, cross)
+    pairs, count = compact_mask(hits, vids, wids, capacity)
+    return pairs, count, n_cand
 
 
 MEMBER_WORD = 32  # whole-membership bits per packed 32-bit word

@@ -126,16 +126,30 @@ def test_bucket_size_matches_reference():
 
 
 def test_unported_modes_raise_and_capabilities_resolve():
+    """The modes that raised before the compact kernel was ported
+    (``prune="window"``, ``emit="compact"``) now resolve and run; the
+    capability rules and the errors for unknown modes stay."""
     assert verify.resolve_prune("pivot", "cosine", True) == "none"
+    assert verify.resolve_prune("window", "cosine", True) == "none"
     assert verify.resolve_emit("compact", "angular") == "mask"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        verify.resolve_prune("window", "l1", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        verify.resolve_emit("compact", "l2")
+    assert verify.resolve_prune("window", "l1", True) == "window"
+    assert verify.resolve_emit("compact", "l2") == "compact"
     with pytest.raises(ValueError, match="requires the mapped coordinates"):
         verify.resolve_prune("pivot", "l1", False)
+    with pytest.raises(ValueError, match="unknown prune mode"):
+        verify.resolve_prune("bogus", "l1", True)
+    with pytest.raises(ValueError, match="unknown emit mode"):
+        verify.resolve_emit("bogus", "l1")
     x = torch.zeros((2, 3))
     assert verify.resolve_engine_backend("cuda", "angular", x) == "torch"
+    r, _, cells, member, xr, _, delta = _setup("l1", False, seed=1)
+    base, _ = verify.verify_pairs(torch.as_tensor(r), cells, member, delta, "l1")
+    for prune, emit in (("window", "mask"), ("pivot", "compact")):
+        got, st = verify.verify_pairs(
+            torch.as_tensor(r), cells, member, delta, "l1",
+            config=verify.EngineConfig(prune=prune, emit=emit), coords=torch.as_tensor(xr),
+        )
+        assert got.tobytes() == base.tobytes() and (st.prune, st.emit) == (prune, emit)
 
 
 def test_prune_band_matches_reference():
@@ -151,3 +165,113 @@ def test_empty_cells_and_no_hits():
     x = torch.zeros((0, 4))
     pairs, st = verify.verify_pairs(x, np.zeros(0, np.int64), np.zeros((0, 3), bool), 1.0, "l1")
     assert pairs.shape == (0, 2) and st.n_cells == 0
+
+
+# ---------------------------------------------------------------------------
+# Compact emission and window pruning against the reference engine
+# ---------------------------------------------------------------------------
+
+# The buffered compact path on every prunable metric; the host-only window
+# mode and the lowered compact modes on l1 and l2.
+CASES = [("pivot", "compact", m) for m in ("l1", "l2", "linf")] + [
+    (prune, emit, m)
+    for prune, emit in (("window", "mask"), ("window", "compact"), ("none", "compact"))
+    for m in ("l1", "l2")
+]
+
+
+def _both(r, s, cells, member, xr, xs, delta, metric, **kw):
+    want = jver.verify_pairs(
+        r, cells, member, delta, metric, config=jver.EngineConfig(backend="numpy", **kw),
+        data_w=s, coords=xr, coords_w=xs,
+    )
+    got = verify.verify_pairs(
+        torch.as_tensor(r), cells, member, delta, metric,
+        config=verify.EngineConfig(backend="auto", **kw),
+        data_w=None if s is None else torch.as_tensor(s),
+        coords=torch.as_tensor(xr), coords_w=None if xs is None else torch.as_tensor(xs),
+    )
+    return got, want
+
+
+def _assert_same(got, want):
+    (gp, gs), (wp, ws) = got, want
+    assert gp.dtype == np.int64 and gp.tobytes() == wp.tobytes() and len(gp) > 0
+    for k in COUNTERS:
+        assert getattr(gs, k) == getattr(ws, k), k
+
+
+@pytest.mark.parametrize("prune,emit,metric", CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("cross", (False, True))
+def test_compact_and_window_identical_to_reference(prune, emit, metric, cross):
+    r, s, cells, member, xr, xs, delta = _setup(metric, cross)
+    got, want = _both(r, s, cells, member, xr, xs, delta, metric,
+                      tile_v=64, tile_w=96, prune=prune, emit=emit)
+    _assert_same(got, want)
+    assert (got[1].prune, got[1].emit) == (prune, emit)
+    if prune != "none":
+        assert got[1].n_pruned > 0
+
+
+def test_window_angular_and_early_flushes_match_reference(monkeypatch):
+    """The batched window dispatch with flushes forced every few tiles, and
+    a metric without a kernel (angular: compact resolves back to mask)."""
+    monkeypatch.setattr(jver, "_BATCH_FLUSH_AREA", 20_000)
+    monkeypatch.setattr(verify, "_BATCH_FLUSH_AREA", 20_000)
+    for metric, emit in (("l1", "mask"), ("angular", "compact")):
+        r, s, cells, member, xr, xs, delta = _setup(metric, False, seed=4)
+        got, want = _both(r, s, cells, member, xr, xs, delta, metric,
+                          tile_v=32, tile_w=48, prune="window", emit=emit)
+        _assert_same(got, want)
+
+
+def _force_undercapacity(monkeypatch, *mods):
+    """Shrink the capacity prior so the first bucket always overflows (the
+    reference suite's knobs, set alike in both engines)."""
+    for mod in mods:
+        monkeypatch.setattr(mod, "DEFAULT_EMIT_RATE", 1e-9)
+        monkeypatch.setattr(mod, "EMIT_SLACK", 1e-9)
+        monkeypatch.setattr(mod, "_EMIT_FLOOR", 1)
+        monkeypatch.setattr(mod, "_estimate_emit_rate", lambda *a, **k: 1e-9)
+
+
+@pytest.mark.parametrize("metric,retries", [("l1", 3), ("l2", 0)], ids=("retry", "mask-fallback"))
+def test_overflow_ladder_matches_reference(metric, retries, monkeypatch):
+    r, _, cells, member, xr, _, delta = _setup(metric, False, seed=2)
+    base = verify.verify_pairs(
+        torch.as_tensor(r), cells, member, delta, metric,
+        config=verify.EngineConfig(tile_v=64, tile_w=96, prune="pivot"),
+        coords=torch.as_tensor(xr),
+    )
+    _force_undercapacity(monkeypatch, jver, verify)
+    monkeypatch.setattr(jver, "_MAX_OVERFLOW_RETRIES", retries)
+    monkeypatch.setattr(verify, "_MAX_OVERFLOW_RETRIES", retries)
+    got, want = _both(r, None, cells, member, xr, None, delta, metric,
+                      tile_v=64, tile_w=96, prune="pivot", emit="compact")
+    _assert_same(got, want)
+    assert got[1].n_overflow_retries >= 1
+    assert got[0].tobytes() == base[0].tobytes() and got[1].n_pruned == base[1].n_pruned
+
+
+def test_compact_capacity_prior_matches_reference():
+    _, _, _, _, xr, _, _ = _setup("l1", False)
+    for d in (0.1, 1.0, 5.0):
+        assert verify._estimate_emit_rate(torch.as_tensor(xr), d) == jver._estimate_emit_rate(xr, d)
+
+
+def test_verify_resident_matches_reference():
+    r, s, cells, member, xr, xs, delta = _setup("l2", True, seed=6)
+    p = member.shape[1]
+    order = np.argsort(cells, kind="stable")
+    bounds = np.searchsorted(cells[order], np.arange(p + 1))
+    v_lists = [order[bounds[h] : bounds[h + 1]] for h in range(p)]
+    want, ws = jver.verify_resident(
+        r, cells, v_lists, member, delta, "l2",
+        config=jver.EngineConfig(backend="numpy", prune="pivot"), data_w=s, coords=xr, coords_w=xs,
+    )
+    got, gs = verify.verify_resident(
+        torch.as_tensor(r), torch.from_numpy(np.array(cells)), v_lists, torch.from_numpy(np.array(member)), delta, "l2",
+        config=verify.EngineConfig(prune="pivot"), data_w=torch.as_tensor(s),
+        coords=torch.as_tensor(xr), coords_w=torch.as_tensor(xs),
+    )
+    _assert_same((got, gs), (want, ws))
