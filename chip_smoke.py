@@ -65,6 +65,10 @@ N_ROWS = 1_000_000  # the main path's rows before any "reduced" cut
 MAIN_SHARE_S = 480.0  # the two main-path joins' share of the time limit
 N_QUERY_BATCHES = 8  # timed query batches of the serving phase
 QUERY_BATCH = 4096  # rows per query batch
+N_SMALL_BATCHES = 100  # timed small batches, enough samples for a p99
+SMALL_BATCH = 256  # rows per small batch (the JAX package's serve_qps.py batch)
+SMALL_SHARE_S = 150.0  # time cap of the small-batch arm (~1.2 s per batch on an H100)
+SERVING_ROWS = (N_QUERY_BATCHES + 1) * QUERY_BATCH + N_SMALL_BATCHES * SMALL_BATCH  # fresh query rows
 INSERT_SHARE = 0.01  # the serving phase's insert: 1 % of the indexed rows
 BRUTE_CHUNK = 2048  # spjoin.brute_force_pairs' default row chunk
 T_START = time.perf_counter()
@@ -369,13 +373,14 @@ def compact_tile(x, y, metric: str, coords: bool):
     return vids, wids, wcells, px, py
 
 
-def check_verify_compact_tile(x, y, metric: str, cross: bool, coords: bool) -> tuple[int, int, int]:
+def check_verify_compact_tile(x, y, metric: str, cross: bool, coords: bool) -> tuple[int, int, int, int]:
     """The verify-compact kernel against its plain version on one tile:
     the candidate count exact; the pair sets equal except pairs whose plain
     distance is within its stated tolerance of delta (``dist_tol``), and the
     kernel's count exactly its filled slots; then a forced overflow
     (capacity a third of the count) keeps the exact count and fills every
-    slot with kernel pairs. Returns (count, n_cand, band pairs)."""
+    slot with kernel pairs. Returns (count, n_cand, band pairs, pairs that
+    differ off the band), the last asserted 0."""
     a, b, m = x.shape[0], y.shape[0], x.shape[1]
     vids, wids, wcells, px, py = compact_tile(x, y, metric, coords)
     d64 = pairdist64(x, y, metric)
@@ -396,32 +401,33 @@ def check_verify_compact_tile(x, y, metric: str, cross: bool, coords: bool) -> t
     both = torch.cat([k_keys, p_keys])
     uniq, cnt = torch.unique(both, return_counts=True)
     diff = uniq[cnt == 1]
-    band = 0
+    band = off = 0
     if diff.numel():
         i, j = diff >> 32, diff & 0xFFFFFFFF
         d_plain = ref.pairdist(x, y, metric)[i, j]
         d_k = ops.pairdist(x, y, metric, backend="cuda")[i, j]
         nx, ny = x[i].double().norm(dim=1), y[j].double().norm(dim=1)
         tol = dist_tol(metric, m, nx, ny, d64[i, j], d_k, d_plain)
-        band = int(diff.numel())
-        assert bool(((d_plain.double() - delta).abs() <= tol).all()), "compact pairs differ off the delta band"
+        off = int(((d_plain.double() - delta).abs() > tol).sum())
+        band = int(diff.numel()) - off
+    assert off == 0, f"{off} compact pairs differ off the delta band"
     assert gc - wc == int(torch.isin(diff, k_keys).sum()) - int(torch.isin(diff, p_keys).sum())
     cap = max(gc // 3, 1)
     op, oc, _ = count_one_launch("verify_compact", lambda: run("cuda", cap))
     assert int(oc) == gc and bool(torch.isin(_pair_keys(op), k_keys).all()) and int((op[:, 0] >= 0).sum()) == cap
-    return gc, gn, band
+    return gc, gn, band, off
 
 
 def check_verify_compact(report: dict) -> None:
-    worst_band = 0
+    worst_band = worst_off = 0
     for metric in ref.METRICS:
         for a, b, m in ((1000, 3001, 100), (77, 1030, 33)):
             z = _mixture(a + b, m, 17)
             x, y = z[:a], z[a:]
             for cross in (False, True):
                 for coords in (False, True) if metric in ops.PRUNABLE_METRICS else (False,):
-                    count, n_cand, band = check_verify_compact_tile(x, y, metric, cross, coords)
-                    worst_band = max(worst_band, band)
+                    count, n_cand, band, off = check_verify_compact_tile(x, y, metric, cross, coords)
+                    worst_band, worst_off = max(worst_band, band), max(worst_off, off)
                     log(f"verify_compact {metric:6s} {a}x{b}x{m} cross={cross} coords={coords}: "
                         f"count {count} n_cand {n_cand} delta-band pairs {band}; overflow exact")
     # The main path's tile: l1, 1024 x 4096 x 128, 8 mapped dims, sorted
@@ -434,7 +440,8 @@ def check_verify_compact(report: dict) -> None:
     order_y = ref.pairdist(y, anchors, "l1")[:, 0].argsort()
     x, y = x[order_x].contiguous(), y[order_y].contiguous()
     for cross in (False, True):
-        count, n_cand, band = check_verify_compact_tile(x, y, "l1", cross, True)
+        count, n_cand, band, off = check_verify_compact_tile(x, y, "l1", cross, True)
+        worst_band, worst_off = max(worst_band, band), max(worst_off, off)
         log(f"verify_compact l1 {a}x{b}x{m} (main tile) cross={cross} coords=True: count {count} "
             f"n_cand {n_cand} of {a * b} delta-band pairs {band}; overflow exact")
         assert n_cand < a * b
@@ -455,12 +462,13 @@ def check_verify_compact(report: dict) -> None:
     bms, by = bound_ms(n_bytes, 2.0 * a * b * 8 + 2.0 * n_cand * m)
     report["verify_compact"] = dict(
         name="verify_compact", route="cuda", source="src/repro_torch/kernels/csrc/compact.cu",
-        # The output is a pair buffer: its error is the pair-set mismatches
-        # off the delta band, asserted 0 above (band pairs are allowed).
-        replaces="src/repro/kernels/compact.py:179", max_abs_err=0.0, ms=ms,
-        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        # The output is a pair buffer: its error is the most pairs of one
+        # tile that differ off the delta band (asserted 0; band pairs are
+        # allowed and counted in delta_band_pairs).
+        replaces="src/repro/kernels/compact.py:179", max_abs_err=float(worst_off), ms=ms,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, delta_band_pairs=worst_band,
     )
-    log(f"verify_compact: most delta-band pairs in one tile {worst_band}")
+    log(f"verify_compact: most pairs of one tile off the delta band {worst_off}, in the band {worst_band}")
     log(f"verify_compact l1 {a}x{b}x{m} self (count {count}, bound survivors {n_cand}, capacity {cap}): "
         f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
 
@@ -740,37 +748,64 @@ def profile_join(n: int, emit: str) -> None:
         log(f"  device {ms:10.2f} ms  {name[:100]}")
 
 
-def phase_serving(z: torch.Tensor, delta: float) -> None:
-    """The persistent index over the main path's rows: build, timed query
-    batches of fresh rows of the same mixture, brute-force checks, save ->
-    load -> query, and one insert of 1 % of the rows."""
-    log("== serving: build_index over the main path's rows, query, save/load, insert")
-    x = z[:N_ROWS]
-    queries = z[N_ROWS : N_ROWS + (N_QUERY_BATCHES + 1) * QUERY_BATCH]
-    n_ins = int(INSERT_SHARE * N_ROWS)
-    delta_rows = z[N_ROWS + queries.shape[0] : N_ROWS + queries.shape[0] + n_ins]
-    cfg = spjoin.JoinConfig(delta=delta)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    idx = index.build_index(x, cfg)
-    torch.cuda.synchronize()
-    log(f"build_index: N={idx.n_rows} p={idx.p} k={idx.k} backend={idx.backend} in {time.perf_counter() - t0:.3f}s")
-    batches = [queries[i * QUERY_BATCH : (i + 1) * QUERY_BATCH] for i in range(N_QUERY_BATCHES + 1)]
-    idx.query_batch(batches[-1])  # warm
+def _timed_queries(idx, batches: list, label: str) -> tuple[np.ndarray, list, dict]:
+    """Query ``batches`` in turn, each timed on the host clock around a
+    synchronised call, with the launch counts set to 0 just before the
+    first and read just after the last; stops early once SMALL_SHARE_S is
+    spent (the small-batch arm). Returns (latencies, answers, counts)."""
     lat, answers = [], []
-    for i, q in enumerate(batches[:-1]):
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    for i, q in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pairs, st = idx.query_batch(q, with_stats=True)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         answers.append(pairs)
-        log(f"query batch {i}: {q.shape[0]} rows, {len(pairs)} pairs, route {st.route_s:.4f}s "
-            f"verify {st.verify_s:.4f}s total {lat[-1]:.4f}s, duplication {st.duplication:.3f}, "
-            f"tiles {st.verify.n_tiles}, prune rate {st.verify.prune_rate:.4f}")
-    lat_s = np.array(lat)
-    log(f"serving: QPS {N_QUERY_BATCHES * QUERY_BATCH / lat_s.sum():.1f} p50 {np.percentile(lat_s, 50):.4f}s "
-        f"p99 {np.percentile(lat_s, 99):.4f}s per {QUERY_BATCH}-row batch")
+        if q.shape[0] == QUERY_BATCH:
+            log(f"query batch {i}: {q.shape[0]} rows, {len(pairs)} pairs, route {st.route_s:.4f}s "
+                f"verify {st.verify_s:.4f}s total {lat[-1]:.4f}s, duplication {st.duplication:.3f}, "
+                f"tiles {st.verify.n_tiles}, prune rate {st.verify.prune_rate:.4f}")
+        elif time.perf_counter() - t_start > SMALL_SHARE_S:
+            break
+    counts = ops.launch_counts()
+    log(f"{label} launch counts {json.dumps(counts)}")
+    assert counts["map_assign"] > 0 and counts["pairdist_filtered"] > 0, counts
+    return np.array(lat), answers, counts
+
+
+def phase_serving(z: torch.Tensor, delta: float) -> None:
+    """The persistent index over the main path's rows: build, timed query
+    batches of fresh rows of the same mixture (4,096-row batches, then
+    256-row batches for a tail latency), brute-force checks, save -> load
+    -> query, and one insert of 1 % of the rows. Each part's launch counts
+    are set to 0 just before it and read just after."""
+    log("== serving: build_index over the main path's rows, query, save/load, insert")
+    x = z[:N_ROWS]
+    fresh = z[N_ROWS : N_ROWS + SERVING_ROWS]
+    n_ins = int(INSERT_SHARE * N_ROWS)
+    delta_rows = z[N_ROWS + SERVING_ROWS : N_ROWS + SERVING_ROWS + n_ins]
+    cfg = spjoin.JoinConfig(delta=delta)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = index.build_index(x, cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"build_index: N={idx.n_rows} p={idx.p} k={idx.k} backend={idx.backend} in {time.perf_counter() - t0:.3f}s; "
+        f"launch counts {json.dumps(counts)}")
+    assert counts["map_assign"] > 0, counts
+    n_big = (N_QUERY_BATCHES + 1) * QUERY_BATCH
+    batches = [fresh[i * QUERY_BATCH : (i + 1) * QUERY_BATCH] for i in range(N_QUERY_BATCHES + 1)]
+    idx.query_batch(batches[-1])  # warm
+    lat_s, answers, _ = _timed_queries(idx, batches[:-1], f"{QUERY_BATCH}-row batches")
+    log(f"serving {QUERY_BATCH}-row batches: QPS {N_QUERY_BATCHES * QUERY_BATCH / lat_s.sum():.1f} "
+        f"p50 {np.percentile(lat_s, 50):.4f}s largest of {lat_s.size} {lat_s.max():.4f}s per batch")
+    small = [fresh[n_big + i * SMALL_BATCH : n_big + (i + 1) * SMALL_BATCH] for i in range(N_SMALL_BATCHES)]
+    lat_s, _, _ = _timed_queries(idx, small, f"{SMALL_BATCH}-row batches")
+    log(f"serving {SMALL_BATCH}-row batches: {lat_s.size} timed, QPS {lat_s.size * SMALL_BATCH / lat_s.sum():.1f} "
+        f"p50 {np.percentile(lat_s, 50):.4f}s p99 {np.percentile(lat_s, 99):.4f}s largest {lat_s.max():.4f}s per batch")
     for i in (0, 1):
         truth = index.brute_force_query(x, batches[i], delta, "l1")
         log(f"query batch {i} vs brute force: {check_exact(answers[i], truth, x, batches[i], 'l1', delta)}")
@@ -783,14 +818,18 @@ def phase_serving(z: torch.Tensor, delta: float) -> None:
     assert same
     del loaded
     n_old = idx.n_rows
+    ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     new_pairs, st = idx.insert_batch(delta_rows)
     torch.cuda.synchronize()
     t_ins = time.perf_counter() - t0
+    counts = ops.launch_counts()
     log(f"insert_batch: {st.n_delta} rows onto {st.n_resident} in {t_ins:.3f}s (route {st.route_s:.3f}s "
         f"verify {st.verify_s:.3f}s update {st.update_s:.3f}s), action {st.action}, drift {st.drift:.4f}, "
-        f"new pairs {st.n_new_pairs} (cross {st.n_cross_pairs}, self {st.n_self_pairs})")
+        f"new pairs {st.n_new_pairs} (cross {st.n_cross_pairs}, self {st.n_self_pairs}); "
+        f"launch counts {json.dumps(counts)}")
+    assert counts["map_assign"] > 0 and counts["pairdist_filtered"] > 0, counts
     full = torch.cat([x, delta_rows])
     rows = n_old + torch.randperm(n_ins, device="cuda")[:256]
     log(f"insert spot check: {spot_check(full, new_pairs, delta, rows)}")
@@ -826,16 +865,28 @@ def phase_exactness() -> dict:
         assert same, metric
         assert counts["pairdist"] > 0, counts
         for kw in (dict(emit="compact"), dict(prune="window"), dict(prune="window", emit="compact")):
+            ops.reset_launch_counts()
             res, t = run_join(x, spjoin.JoinConfig(delta=delta, metric=metric, **kw))
+            kw_counts = ops.launch_counts()
             same = res.pairs.tobytes() == pivot.pairs.tobytes()
             log(f"{metric} {kw}: == default join {same} ({t:.2f}s, {res.verify_stats.n_tiles} tiles, "
-                f"prune rate {res.verify_stats.prune_rate:.4f})")
+                f"prune rate {res.verify_stats.prune_rate:.4f}); launch counts {json.dumps(kw_counts)}")
             assert same, (metric, kw)
+            # Window tiles run the plain pairdist kernel (mask) or the
+            # verify-compact kernel without coordinates (compact).
+            verify_kernel = "verify_compact" if kw.get("emit") == "compact" else "pairdist"
+            assert kw_counts["map_assign"] > 0 and kw_counts[verify_kernel] > 0, kw_counts
+            if kw.get("prune") == "window":
+                assert kw_counts["pairdist_filtered"] == 0, kw_counts
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         inc = spjoin.join_incremental(torch.tensor_split(x, 4), base)
+        t_inc = time.perf_counter() - t0
+        inc_counts = ops.launch_counts()
         verdict = _same_or_straddles(inc.pairs, pivot.pairs, truth, x, x, metric, delta)
         log(f"{metric} join_incremental (4-way split, actions {[st.action for st in inc.stats]}): "
-            f"{verdict} ({time.perf_counter() - t0:.2f}s)")
+            f"{verdict} ({t_inc:.2f}s); launch counts {json.dumps(inc_counts)}")
+        assert inc_counts["map_assign"] > 0 and inc_counts["pairdist_filtered"] > 0, inc_counts
         if metric == "l1":
             assert verdict == "byte-identical"
     x = _mixture(n, m, 21)
@@ -877,7 +928,7 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] kernels checked")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
-    extra = (N_QUERY_BATCHES + 1) * QUERY_BATCH + int(INSERT_SHARE * N_ROWS)
+    extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
     mask_counts, compact_counts, x, delta = phase_main_path(report, z)
     log(f"[{elapsed():.1f}s] main path done")

@@ -211,16 +211,10 @@ def verify_tile_compact(
         assert pv is not None and pw is not None, 'prune="pivot" without coords'
     else:
         pv = pw = None
-    if backend == "cuda":
-        pairs, count, n_cand = kops.verify_compact(
-            xv, xw, vids, wids, wcells, cell_id, pv, pw, delta=delta, metric=metric,
-            capacity=capacity, cross=cross, delta_bound=delta_bound, backend="cuda",
-        )
-    else:
-        pairs, count, n_cand = ref.verify_compact(
-            xv, xw, vids, wids, wcells, cell_id, delta=delta, metric=metric,
-            capacity=capacity, cross=cross, px=pv, py=pw, delta_bound=delta_bound,
-        )
+    pairs, count, n_cand = kops.verify_compact(
+        xv, xw, vids, wids, wcells, cell_id, pv, pw, delta=delta, metric=metric,
+        capacity=capacity, cross=cross, delta_bound=delta_bound, backend=backend,
+    )
     return pairs, torch.stack([count, n_cand])
 
 

@@ -126,14 +126,13 @@ def test_bucket_size_matches_reference():
 
 
 def test_unported_modes_raise_and_capabilities_resolve():
-    """The modes that raised before the compact kernel was ported
-    (``prune="window"``, ``emit="compact"``) now resolve and run; the
-    capability rules and the errors for unknown modes stay."""
+    """The capability rules: an unsound metric resolves pruning to "none",
+    a metric without a kernel resolves compact emission to "mask" and the
+    plain backend; pivot pruning without coordinates and unknown modes
+    raise."""
     assert verify.resolve_prune("pivot", "cosine", True) == "none"
     assert verify.resolve_prune("window", "cosine", True) == "none"
     assert verify.resolve_emit("compact", "angular") == "mask"
-    assert verify.resolve_prune("window", "l1", True) == "window"
-    assert verify.resolve_emit("compact", "l2") == "compact"
     with pytest.raises(ValueError, match="requires the mapped coordinates"):
         verify.resolve_prune("pivot", "l1", False)
     with pytest.raises(ValueError, match="unknown prune mode"):
@@ -142,6 +141,13 @@ def test_unported_modes_raise_and_capabilities_resolve():
         verify.resolve_emit("bogus", "l1")
     x = torch.zeros((2, 3))
     assert verify.resolve_engine_backend("cuda", "angular", x) == "torch"
+
+
+def test_prune_emit_modes_resolve_and_run():
+    """``prune="window"`` and ``emit="compact"`` resolve to themselves on a
+    true metric and return the default engine's pairs."""
+    assert verify.resolve_prune("window", "l1", True) == "window"
+    assert verify.resolve_emit("compact", "l2") == "compact"
     r, _, cells, member, xr, _, delta = _setup("l1", False, seed=1)
     base, _ = verify.verify_pairs(torch.as_tensor(r), cells, member, delta, "l1")
     for prune, emit in (("window", "mask"), ("pivot", "compact")):
