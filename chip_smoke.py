@@ -10,7 +10,9 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    at ragged shapes and at the main path's shapes, with times
                    (kernel, plain, library yardstick) and the roofline bound;
                    verify-compact self and R x S, with and without pivot
-                   coordinates, and with a forced overflow;
+                   coordinates, and with a forced overflow; the histogram
+                   at ragged shapes, edge values and zero weights, and at
+                   the stats stage's 1,000,000 x 128, t = 8 (exact);
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -27,6 +29,17 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    force, save -> load -> query byte-identical, and one
                    insert_batch of 1 % of the rows with 256 delta rows
                    checked by brute force;
+  distributed    — an NCCL process group of world size 1 on the card:
+                   distributed_join over the compact join's rows with its
+                   config (p = 16, prune pivot, placement lpt, emit
+                   compact), pairs byte-identical to that join, stage
+                   seconds, collective counts and telemetry printed, the
+                   histogram, map-assign and verify-compact launches
+                   counted; then DistIndex from the serving index: two
+                   4,096-row query batches byte-identical to
+                   MetricIndex.query_batch and one insert_batch (spot
+                   checked by brute force). Four ranks need four cards: the
+                   multi-rank path is held on the CPU by the gloo tests;
   5. exactness   — at N = 50,000 the join (l1, l2; prune pivot and none; one
                    R x S) equals a brute-force join done in row chunks with
                    the plain version on the card: byte for byte, or differing
@@ -38,7 +51,7 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    and join_incremental over a 4-way split equals the join.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
-A full run takes about 7 minutes on an H100 (build ~15 s).
+A full run takes about 9 minutes on an H100 (build ~15 s).
 """
 from __future__ import annotations
 
@@ -54,7 +67,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import index, partition, spjoin, verify  # noqa: E402
+from repro_torch.core import distributed, index, partition, spjoin, verify  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 
@@ -62,7 +75,8 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
 N_ROWS = 1_000_000  # the main path's rows before any "reduced" cut
-MAIN_SHARE_S = 480.0  # the two main-path joins' share of the time limit
+MAIN_SHARE_S = 600.0  # the main-path joins' share of the time limit (the
+#   mask and compact joins and the distributed join of the compact join's rows)
 N_QUERY_BATCHES = 8  # timed query batches of the serving phase
 QUERY_BATCH = 4096  # rows per query batch
 N_SMALL_BATCHES = 100  # timed small batches, enough samples for a p99
@@ -346,7 +360,50 @@ def phase_kernels() -> dict:
         replaces="src/repro/kernels/mapassign.py:133", max_abs_err=worst, library_ms=None,
     )
     check_verify_compact(report)
+    check_histogram(report)
     return report
+
+
+def check_histogram(report: dict) -> None:
+    """The histogram kernel against its plain version: ragged shapes, every
+    edge value of the cell rule, weights with zeros, and the stats stage's
+    shape (1,000,000 x 128, t = 8) — counts are integers in float32, so
+    equality is exact. One launch per call."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    edges = torch.tensor([0.0, 1.0 - 2.0**-24, 1.0, -0.5, 7.0, 1e30, float("nan"),
+                          float("inf"), -float("inf")], device="cuda")
+    worst = 0.0
+    for n, m, t in ((1000, 33, 8), (1000, 33, 16), (77, 5, 4), (4099, 130, 16), (1_000_000, 128, 8)):
+        u = torch.rand((n, m), generator=gen, device="cuda") * 1.1 - 0.05
+        u[: edges.numel()] = edges[:, None]  # every edge value in every column
+        w = (torch.rand((n,), generator=gen, device="cuda") > 0.25).float()
+        got = count_one_launch("histogram", lambda: ops.histogram(u, t, w, backend="cuda"))
+        want = ref.histogram(u, t, w)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"histogram {n}x{m} t={t}: max_abs_err {err} (exact {bool(torch.equal(got, want))}), "
+            f"weight sum {float(w.sum()):.0f} x {m} = total {float(got.sum()):.0f}")
+        assert torch.equal(got, want), (n, m, t)
+    n, m, t = u.shape[0], u.shape[1], 8
+    ms = cuda_ms(lambda: ops.histogram(u, t, w, backend="cuda"))
+    plain = cuda_ms(lambda: ref.histogram(u, t, w), reps=3)
+    # Library yardstick: one torch.bincount with weights over the flat
+    # dim·t + cell index, precomputed outside the timing (the time is the
+    # bincount call alone: it reads the index and the expanded weights).
+    flat = (torch.arange(m, device="cuda")[None, :] * t + ref.histogram_cells(u, t)).reshape(-1)
+    wf = w[:, None].expand(-1, m).reshape(-1).contiguous()
+    lib = cuda_ms(lambda: torch.bincount(flat, weights=wf, minlength=m * t))
+    assert torch.equal(torch.bincount(flat, weights=wf, minlength=m * t).float().reshape(m, t),
+                       ref.histogram(u, t, w))
+    del flat, wf
+    bms, by = bound_ms(4 * n * m + 4 * n + 4 * m * t, 3.0 * n * m)
+    report["histogram"] = dict(
+        name="histogram", route="cuda", source="src/repro_torch/kernels/csrc/histogram.cu",
+        replaces="src/repro/kernels/histogram.py:42", max_abs_err=worst, ms=ms,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+    )
+    log(f"histogram {n}x{m} t={t}: kernel {ms:.4f} ms plain {plain:.4f} ms "
+        f"bincount {lib:.4f} ms bound {bms:.4f} ms ({by})")
 
 
 def _pair_keys(pairs: torch.Tensor) -> torch.Tensor:
@@ -665,8 +722,12 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
     return res, counts
 
 
-def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Tensor, float]:
-    """The two main-path joins over the first N_ROWS rows of ``z``."""
+def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Tensor, float, object]:
+    """The two main-path joins over the first N_ROWS rows of ``z``. The
+    probe's budget also holds the distributed join of the compact join's
+    rows (phase "distributed"), predicted as a compact join. Returns the
+    launch counts of both joins, the compact join's rows, δ and its
+    result."""
     log("== phase 4: main path (l1 self-join; default config, then emit=\"compact\")")
     m = z.shape[1]
     # Probe both configs at n/16, each run twice so the timed run is warm.
@@ -687,14 +748,18 @@ def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Te
         return (t - res.verify_time_s) * r + res.verify_time_s * r * r
 
     n_mask = n_compact = N_ROWS
+
+    def total(nm: int, nc: int) -> float:  # mask + compact + distributed compact
+        return predict("mask", nm) + 2 * predict("compact", nc)
+
     log(f"probe: {probe_n} rows, mask {probes['mask'][1]:.2f}s compact {probes['compact'][1]:.2f}s; "
-        f"predicted {predict('mask', N_ROWS):.1f}s + {predict('compact', N_ROWS):.1f}s at {N_ROWS} rows")
-    while n_mask > probe_n and predict("mask", n_mask) + predict("compact", n_compact) > MAIN_SHARE_S:
+        f"predicted {predict('mask', N_ROWS):.1f}s + 2 x {predict('compact', N_ROWS):.1f}s at {N_ROWS} rows")
+    while n_mask > probe_n and total(n_mask, n_compact) > MAIN_SHARE_S:
         log(f"reduced: mask join n_rows {n_mask} -> {n_mask // 2} (predicted "
-            f"{predict('mask', n_mask) + predict('compact', n_compact):.1f}s > {MAIN_SHARE_S:.0f}s)")
+            f"{total(n_mask, n_compact):.1f}s > {MAIN_SHARE_S:.0f}s)")
         n_mask //= 2
-    while n_compact > probe_n and predict("mask", n_mask) + predict("compact", n_compact) > MAIN_SHARE_S:
-        log(f"reduced: compact join n_rows {n_compact} -> {n_compact // 2}")
+    while n_compact > probe_n and total(n_mask, n_compact) > MAIN_SHARE_S:
+        log(f"reduced: compact and distributed joins n_rows {n_compact} -> {n_compact // 2}")
         n_compact //= 2
     x = z[:N_ROWS]
     delta = pick_delta(x, "l1", 10.0)
@@ -709,7 +774,7 @@ def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Te
         log(f"compact == mask pairs at N={n_mask}: {same}")
         assert same
     check_and_time_map_assign(report, x[:n_compact], spjoin.JoinConfig(delta=delta))
-    return counts_m, counts_c, x, delta
+    return counts_m, counts_c, x[:n_compact], delta, res_c
 
 
 def main_path_plan(x: torch.Tensor, cfg) -> tuple:
@@ -726,9 +791,7 @@ def main_path_plan(x: torch.Tensor, cfg) -> tuple:
 
 def profile_join(n: int, emit: str) -> None:
     """Where the join's time goes on the device: one l1 join of n rows
-    under torch.profiler; device busy time is the sum of the kernels'
-    intervals (one stream, so they do not overlap)."""
-    from torch.autograd import DeviceType
+    under torch.profiler (:func:`device_time`)."""
     from torch.profiler import ProfilerActivity, profile
 
     x = _mixture(n, 128, 13)
@@ -737,15 +800,24 @@ def profile_join(n: int, emit: str) -> None:
     run_join(x, cfg)  # warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res, wall = run_join(x, cfg)
+    busy, per_kernel = device_time(prof)
+    log(f"profile emit={emit}: N={n} join wall {wall * 1e3:.1f} ms (verify {res.verify_time_s * 1e3:.1f} ms, "
+        f"{res.verify_stats.n_tiles} tiles) device busy {busy:.1f} ms = {busy / (wall * 1e3):.3f} of wall")
+    for name, ms in per_kernel[:8]:
+        log(f"  device {ms:10.2f} ms  {name[:100]}")
+
+
+def device_time(prof) -> tuple[float, list]:
+    """Device milliseconds of a profiled window in all and by kernel name
+    (largest first): the sum of the kernels' intervals (one stream, so
+    they do not overlap)."""
+    from torch.autograd import DeviceType
+
     per_kernel: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(per_kernel.values())
-    log(f"profile emit={emit}: N={n} join wall {wall * 1e3:.1f} ms (verify {res.verify_time_s * 1e3:.1f} ms, "
-        f"{res.verify_stats.n_tiles} tiles) device busy {busy:.1f} ms = {busy / (wall * 1e3):.3f} of wall")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  device {ms:10.2f} ms  {name[:100]}")
+    return sum(per_kernel.values()), sorted(per_kernel.items(), key=lambda kv: -kv[1])
 
 
 def _timed_queries(idx, batches: list, label: str) -> tuple[np.ndarray, list, dict]:
@@ -775,7 +847,7 @@ def _timed_queries(idx, batches: list, label: str) -> tuple[np.ndarray, list, di
     return np.array(lat), answers, counts
 
 
-def phase_serving(z: torch.Tensor, delta: float) -> None:
+def phase_serving(z: torch.Tensor, delta: float) -> tuple[object, list]:
     """The persistent index over the main path's rows: build, timed query
     batches of fresh rows of the same mixture (4,096-row batches, then
     256-row batches for a tail latency), brute-force checks, save -> load
@@ -834,6 +906,125 @@ def phase_serving(z: torch.Tensor, delta: float) -> None:
     rows = n_old + torch.randperm(n_ins, device="cuda")[:256]
     log(f"insert spot check: {spot_check(full, new_pairs, delta, rows)}")
     assert idx.n_rows == n_old + n_ins and (new_pairs[:, 1] >= n_old).all()
+    return idx, batches
+
+
+def phase_distributed(x: torch.Tensor, delta: float, compact, idx, batches: list) -> dict:
+    """The distributed executor on an NCCL process group of world size 1:
+    distributed_join over the compact join's rows with its config, pairs
+    byte-identical to it; then DistIndex over the serving index (two query
+    batches byte-identical to MetricIndex.query_batch, one insert). The
+    launch counts are set to 0 just before the join and read just after."""
+    import torch.distributed as dist
+
+    log("== distributed: torch.distributed (NCCL, world size 1) join and DistIndex serving")
+    rdzv = os.path.join(ROOT, "build", "chip_smoke_rdzv")
+    os.makedirs(os.path.dirname(rdzv), exist_ok=True)
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", world_size=1, rank=0,
+                            device_id=torch.device("cuda:0"))
+    try:
+        n = x.shape[0]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        distributed.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed.distributed_join(
+            x, delta=delta, metric="l1", k=1024, p=16, n_dims=8, prune="pivot",
+            placement="lpt", emit_pairs=True, emit="compact",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        coll = distributed.collective_counts()
+        log(f"[distributed] N={n} m={x.shape[1]} delta={delta:.6f} n_pairs={len(res.pairs)} in {wall:.3f}s: "
+            f"stats {res.stats_time_s:.3f}s control {res.control_time_s:.3f}s counts {res.counts_time_s:.3f}s "
+            f"verify {res.verify_time_s:.3f}s")
+        log(f"[distributed] collectives {json.dumps(coll)}")
+        pl = res.placement_plan
+        log("[distributed] telemetry " + json.dumps({
+            "n_hits": res.n_hits, "n_verifications": res.n_verifications,
+            "n_candidates": res.n_candidates, "pruning_rate": res.pruning_rate,
+            "n_tiles": res.n_tiles, "n_overflow_retries": res.n_overflow_retries,
+            "overflow": res.overflow, "emit": res.emit, "prune": res.prune,
+            "capacity_padding": res.capacity_padding, "duplication": res.duplication,
+            "exact_cap_w": res.exact_cap_w, "predicted_cap_w": res.predicted_cap_w,
+            "predicted_survival": res.predicted_survival, "accept_rate": res.accept_rate,
+            "device_loads": res.device_loads.tolist(), "balance_std": res.balance_std,
+            "makespan_ratio": res.makespan_ratio, "capacity_saved_bytes": res.capacity_saved_bytes,
+            "placement": res.placement, "n_slots": pl.n_slots, "split_cells": pl.n_split_cells,
+        }))
+        log(f"[distributed] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        log(f"[distributed] launch counts {json.dumps(counts)}")
+        same = res.pairs.tobytes() == compact.pairs.tobytes()
+        log(f"[distributed] pairs == the compact join's ({len(compact.pairs)} pairs): {same}")
+        assert same
+        assert res.overflow == 0 and res.n_hits == len(res.pairs)
+        for name in ("histogram", "map_assign", "verify_compact"):
+            assert counts[name] > 0, (name, counts)
+        assert coll == {"stats.all_gather": 3, "counts.all_gather": 8, "verify.all_to_all": 6,
+                        "result.all_gather": 2}, coll
+
+        t0 = time.perf_counter()
+        didx = idx.to_distributed()
+        torch.cuda.synchronize()
+        log(f"[distributed] DistIndex pinned {didx.pl.n_slots} slots, cap_v {didx.cap_v}, "
+            f"in {time.perf_counter() - t0:.3f}s")
+        ops.reset_launch_counts()
+        distributed.reset_collective_counts()
+        for i in (0, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = didx.query_batch(batches[i])
+            torch.cuda.synchronize()
+            t_q = time.perf_counter() - t0
+            want = idx.query_batch(batches[i])
+            same = got.tobytes() == want.tobytes()
+            log(f"[distributed] DistIndex query batch {i}: {len(got)} pairs in {t_q:.3f}s, "
+                f"== MetricIndex.query_batch {same}")
+            assert same
+        log(f"[distributed] DistIndex queries: launch counts {json.dumps(ops.launch_counts())}, "
+            f"collectives {json.dumps(distributed.collective_counts())}")
+        n_old = idx.n_rows
+        rows_new = batches[-1][: QUERY_BATCH // 4]  # query rows, not in the index
+        t0 = time.perf_counter()
+        new_pairs, st = didx.insert_batch(rows_new)
+        torch.cuda.synchronize()
+        log(f"[distributed] DistIndex insert_batch: {st.n_delta} rows onto {st.n_resident} in "
+            f"{time.perf_counter() - t0:.3f}s, action {st.action}, new pairs {st.n_new_pairs}")
+        rows = n_old + torch.randperm(rows_new.shape[0], device="cuda")[:256]
+        log(f"[distributed] insert spot check: {spot_check(idx.data, new_pairs, delta, rows)}")
+        assert idx.n_rows == n_old + rows_new.shape[0]
+        profile_distributed(50_000)
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def profile_distributed(n: int) -> None:
+    """Where the distributed join's time goes on the device: one compact l1
+    join of n rows on the initialised world under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _mixture(n, 128, 13)
+    torch.manual_seed(1)
+    kw = dict(delta=pick_delta(x, "l1", 10.0), metric="l1", k=1024, p=16, n_dims=8,
+              emit_pairs=True, emit="compact")
+    distributed.distributed_join(x, **kw)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = distributed.distributed_join(x, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, per_kernel = device_time(prof)
+    log(f"profile distributed emit=compact: N={n} join wall {wall * 1e3:.1f} ms (verify "
+        f"{res.verify_time_s * 1e3:.1f} ms, {res.n_tiles} tiles) device busy {busy:.1f} ms = "
+        f"{busy / (wall * 1e3):.3f} of wall")
+    for name, ms in per_kernel[:8]:
+        log(f"  device {ms:10.2f} ms  {name[:100]}")
 
 
 def _same_or_straddles(got: np.ndarray, want: np.ndarray, truth, x, y, metric, delta) -> str:
@@ -930,14 +1121,16 @@ def main() -> None:
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta = phase_main_path(report, z)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")
     log(f"[{elapsed():.1f}s] profiles done")
-    phase_serving(z, delta)
-    del z, x
+    idx, batches = phase_serving(z, delta)
     log(f"[{elapsed():.1f}s] serving done")
+    dist_counts = phase_distributed(x, delta, compact, idx, batches)
+    del z, x, idx, batches, compact
+    log(f"[{elapsed():.1f}s] distributed done")
     none_counts = phase_exactness()
     log(f"[{elapsed():.1f}s] exactness done")
     launches = {
@@ -945,6 +1138,7 @@ def main() -> None:
         "pairdist_filtered": mask_counts["pairdist_filtered"],
         "map_assign": mask_counts["map_assign"],
         "verify_compact": compact_counts["verify_compact"],
+        "histogram": dist_counts["histogram"],
     }
     kernels = []
     for name, n in launches.items():

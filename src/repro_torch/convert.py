@@ -58,3 +58,23 @@ def node_stats(
         confidence=float(confidence),
         count=int(count),
     )
+
+
+def join_plan(
+    anchors, metric: str, kernel_lo, kernel_hi, whole_lo, whole_hi, delta: float, p: int,
+    device: torch.device | str = "cuda",
+):
+    """A ``distributed.JoinPlan`` from the reference's ``JoinPlan`` arrays
+    (anchors (n, m), (p, n) box edges), metric, δ and p."""
+    from repro_torch.core import distributed  # deferred: torch.distributed import
+
+    return distributed.JoinPlan(
+        anchors=_t(anchors, device),
+        metric=metric,
+        kernel_lo=_t(kernel_lo, device),
+        kernel_hi=_t(kernel_hi, device),
+        whole_lo=_t(whole_lo, device),
+        whole_hi=_t(whole_hi, device),
+        delta=float(delta),
+        p=int(p),
+    )

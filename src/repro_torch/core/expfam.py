@@ -158,3 +158,21 @@ def sample(p: FamilyParams, gen: torch.Generator, shape: tuple[int, ...]) -> Ten
     else:
         raise ValueError(p.family)
     return out.to(p.a.device)
+
+
+_FAMILY_ID = {name: i for i, name in enumerate(FAMILIES)}
+
+
+def pack(p: FamilyParams) -> Tensor:
+    """(2m + 1,) float32 vector [family_id, a..., b...] — the parameter
+    packet one node broadcasts (the reference's layout)."""
+    fid = torch.full((1,), float(_FAMILY_ID[p.family]), dtype=torch.float32, device=p.a.device)
+    return torch.cat([fid, p.a.float(), p.b.float()])
+
+
+def unpack(v: Tensor, family: str | None = None) -> FamilyParams:
+    """Inverse of :func:`pack`; the family is read from ``v[0]`` unless
+    given."""
+    m = (v.shape[-1] - 1) // 2
+    fam = family if family is not None else FAMILIES[int(v[0])]
+    return FamilyParams(fam, v[1 : 1 + m], v[1 + m :])

@@ -429,6 +429,7 @@ class MetricIndex:
         replan_drift: float | None = None,
         resample_drift: float | None = None,
         rebuild_cfg=None,
+        _cross_pairs_fn=None,
     ) -> tuple[np.ndarray, StreamStats]:
         """Absorb an insertion batch and return the NEW pairs it creates:
         ΔR×R_old (the delta routed against the resident V lists through
@@ -436,7 +437,9 @@ class MetricIndex:
         widened member MBBs, with GLOBAL row ids (delta row j ↦ n_resident
         + j), i < j, sorted unique. Then the drift monitor: thresholds
         default to ``placement.REPLAN_DRIFT`` / ``RESAMPLE_DRIFT``;
-        ``rebuild_cfg`` (a ``spjoin.JoinConfig``) arms the re-sample."""
+        ``rebuild_cfg`` (a ``spjoin.JoinConfig``) arms the re-sample.
+        ``_cross_pairs_fn(delta_rows)`` lets ``distributed.DistIndex`` answer
+        ΔR×R_old through its serve stage under this same control flow."""
         self._ensure_stream_state()
         rt = placement_lib.REPLAN_DRIFT if replan_drift is None else float(replan_drift)
         rs = placement_lib.RESAMPLE_DRIFT if resample_drift is None else float(resample_drift)
@@ -460,10 +463,13 @@ class MetricIndex:
         stats.route_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        cross, stats.cross_verify = verify_lib.verify_resident(
-            self.data, self.cells, self.v_lists, d_member_old, self.delta, self.metric,
-            config=self._engine_config(), data_w=d, coords=self.coords, coords_w=d_coords,
-        )
+        if _cross_pairs_fn is None:
+            cross, stats.cross_verify = verify_lib.verify_resident(
+                self.data, self.cells, self.v_lists, d_member_old, self.delta, self.metric,
+                config=self._engine_config(), data_w=d, coords=self.coords, coords_w=d_coords,
+            )
+        else:
+            cross = np.asarray(_cross_pairs_fn(d), np.int64).reshape(-1, 2)
         self_local, sstats, new_lo, new_hi, member_new = self._delta_self_pairs(d, d_coords, d_cells)
         stats.self_verify = sstats
         stats.verify_s = time.perf_counter() - t0
@@ -489,12 +495,17 @@ class MetricIndex:
         stats.update_s = time.perf_counter() - t0
         return pairs, stats
 
-    def to_distributed(self, mesh=None, axis: str = "data"):
-        """Distributed serving waits for the torch.distributed executor."""
-        raise NotImplementedError(
-            "MetricIndex.to_distributed is not ported yet: it needs the "
-            "torch.distributed executor (ROADMAP queue 1 item 12)"
-        )
+    def to_distributed(self, group=None):
+        """Pin the per-slot V buffers on the ranks of ``group`` (default: the
+        initialised world) and serve query batches through the distributed
+        serve stage (one W-side shuffle per batch, no R bytes moved after
+        this call). Every rank calls it on its own copy of the index.
+        Re-plans placement (a static permutation from the stored cost-model
+        loads) when the world size differs from the plan's ``n_devices``;
+        never re-samples or re-partitions."""
+        from repro_torch.core import distributed as dist_lib  # deferred: import cycle
+
+        return dist_lib.DistIndex.from_index(self, group)
 
     # ------------------------------------------------------------- save/load
 

@@ -198,11 +198,42 @@ def gibbs_chain(
     c_min = float(torch.clamp(conf.min(), 0.05, 1.0))
     length = int(np.ceil(k / c_min * oversample)) + 8
 
+    return _gibbs_draws(gen, counts, conf, length, k, [st.params for st in node_stats])
+
+
+def _compact_accepted(accepted: np.ndarray, k: int) -> np.ndarray:
+    """Chain steps (k,) of the first k accepted draws, in chain order.
+
+    Shortfall tail slots repeat the FIRST ACCEPTED step. If the chain
+    accepted nothing at all, no accepted step exists to repeat: the first k
+    raw steps are taken instead (still mixture-distributed and diverse), and
+    the caller's acceptance rate of 0.0 is its cue to warn."""
+    order = np.argsort(~accepted, kind="stable")
+    take = order[:k]
+    take = np.where(accepted[take], take, take[0])
+    if not accepted.any():
+        take = np.arange(k)
+    return take
+
+
+def _gibbs_draws(
+    gen: torch.Generator,
+    counts: Tensor,
+    conf: Tensor,
+    length: int,
+    k: int,
+    params: Sequence[expfam.FamilyParams],
+) -> tuple[Tensor, float]:
+    """The chain of :func:`gibbs_chain` over per-node float64 ``counts``
+    (C=0 weights), float32 ``conf`` (acceptance, C=1 weights counts/conf)
+    and fitted ``params``: walk ``length`` steps, compact the first k
+    accepted ones, then draw x only for those steps, one batched call per
+    node. Returns (samples (k, m), acceptance rate)."""
     w_c0 = counts  # C=0 → weights N_i
     w_c1 = counts / conf.double()  # C=1 → weights N_i / c_i
     u_e = torch.rand(length, generator=gen, dtype=torch.float64)
     u_c = torch.rand(length, generator=gen)
-    last = len(node_stats) - 1
+    last = len(params) - 1
 
     def draw_e(w: Tensor) -> list[int]:
         cdf = torch.cumsum(w, 0)
@@ -219,22 +250,16 @@ def gibbs_chain(
         es[t] = e
         cs[t] = c
 
-    order = np.argsort(~cs, kind="stable")
-    take = order[:k]
-    take = np.where(cs[take], take, take[0])
-    if not cs.any():
-        take = np.arange(k)
+    take = _compact_accepted(cs, k)
     steps, inv = np.unique(take, return_inverse=True)
     nodes = es[steps]
-    m = node_stats[0].params.a.shape[-1]
-    dev = node_stats[0].params.a.device
+    m = params[0].a.shape[-1]
+    dev = params[0].a.device
     xs = torch.empty((steps.size, m), dtype=torch.float32, device=dev)
-    for i, st in enumerate(node_stats):
+    for i, pr in enumerate(params):
         rows = np.flatnonzero(nodes == i)
         if rows.size:
-            xs[torch.as_tensor(rows, device=dev)] = expfam.sample(
-                st.params, gen, (rows.size,)
-            ).float()
+            xs[torch.as_tensor(rows, device=dev)] = expfam.sample(pr, gen, (rows.size,)).float()
     return xs[torch.as_tensor(inv.reshape(-1), device=dev)], float(cs.mean())
 
 

@@ -385,16 +385,27 @@ def verify_cell_lists(
     data_w=None,
     coords=None,
     coords_w=None,
+    ids=None,
+    ids_w=None,
+    cell_ids: Sequence[int] | None = None,
+    delta_bound: float | None = None,
 ) -> tuple[np.ndarray, VerifyStats]:
     """Run the full reduce phase over explicit per-cell index sets.
 
     ``data``: (N, m) objects (tensor; its device is where the engine runs);
     ``cells_of``: (N,) kernel cell per object (read only in a self-join);
-    ``v_lists[h]`` / ``w_lists[h]``: global row indices of V_h / W_h (host
+    ``v_lists[h]`` / ``w_lists[h]``: row indices of V_h / W_h (host
     arrays). Returns (pairs (n_pairs, 2) int64 sorted unique, stats).
     ``data_w`` switches to R×S (``w_lists`` then index ``data_w``).
     ``coords`` / ``coords_w``: the mapped coordinates, required for
     ``prune`` "pivot" | "window".
+
+    A row's index is its id unless ``ids`` (N,) / ``ids_w`` (rows of
+    ``data_w``) give the global ids: the de-dup order and the emitted pairs
+    then use those (the distributed executor verifies received slots whose
+    rows are not in id order). ``cell_ids[h]``: the cell id list h is
+    verified as (default h). ``delta_bound``: the pivot filter's band for
+    the whole join (default: from these rows, ``prune_band``).
     """
     data_t = _as_rows(data)
     device = data_t.device
@@ -411,7 +422,8 @@ def verify_cell_lists(
         # One host copy of the coordinates for the control plane.
         coords_np = _host(coords_t)
         coords_w_np = _host(coords_w_t) if cross else coords_np
-        delta_bound = prune_band(delta, metric, data_t, data_w_t if cross else None)
+        if delta_bound is None:
+            delta_bound = prune_band(delta, metric, data_t, data_w_t if cross else None)
     # Which tiles carry the on-device pair buffer (the reference's rule with
     # "cuda" for "pallas"): the kernel backend always; the plain path only
     # under "pivot", where the buffer's counters carry the survivor count.
@@ -423,8 +435,14 @@ def verify_cell_lists(
     pending: list[tuple] = []
     pending_area = 0
     emit_rate = DEFAULT_EMIT_RATE
+    id_t = None if ids is None else torch.as_tensor(ids).to(device=device, dtype=torch.int64)
+    id_w_t = id_t if not cross else (
+        None if ids_w is None else torch.as_tensor(ids_w).to(device=device, dtype=torch.int64)
+    )
     if buffered:
-        if max(data_t.shape[0], data_w_t.shape[0]) >= 2**31:
+        if max(data_t.shape[0], data_w_t.shape[0]) >= 2**31 or any(
+            t is not None and t.numel() and int(t.max()) >= 2**31 for t in (id_t, id_w_t)
+        ):
             raise ValueError('emit="compact" carries int32 ids: at most 2**31 - 1 rows')
         if coords is not None:
             emit_rate = _estimate_emit_rate(
@@ -437,7 +455,8 @@ def verify_cell_lists(
     stats = VerifyStats(prune=prune, emit=emit)
     chunks: list[Tensor] = []
 
-    for h, (v_idx, w_idx) in enumerate(zip(v_lists, w_lists)):
+    for i_cell, (v_idx, w_idx) in enumerate(zip(v_lists, w_lists)):
+        h = i_cell if cell_ids is None else int(cell_ids[i_cell])
         v_idx = np.asarray(v_idx, np.int64)
         w_idx = np.asarray(w_idx, np.int64)
         if v_idx.size == 0 or w_idx.size == 0:
@@ -457,17 +476,19 @@ def verify_cell_lists(
             w_coord0 = w_coords_cell[:, sort_dim]
             v_coords_cell = coords_np[v_idx]
         # One gather per cell on the device; every tile is a slice.
-        v_ids = torch.as_tensor(v_idx, device=device)
-        w_ids = torch.as_tensor(w_idx, device=device)
-        v_rows = data_t.index_select(0, v_ids)
-        w_rows = data_w_t.index_select(0, w_ids)
-        w_cells = None if cross else cells_t.index_select(0, w_ids)
+        v_pos = torch.as_tensor(v_idx, device=device)
+        w_pos = torch.as_tensor(w_idx, device=device)
+        v_rows = data_t.index_select(0, v_pos)
+        w_rows = data_w_t.index_select(0, w_pos)
+        w_cells = None if cross else cells_t.index_select(0, w_pos)
+        v_ids = v_pos if id_t is None else id_t.index_select(0, v_pos)
+        w_ids = w_pos if id_w_t is None else id_w_t.index_select(0, w_pos)
         if buffered:  # the kernel's int32 ids (checked above: all < 2**31)
             v_ids, w_ids = v_ids.to(torch.int32), w_ids.to(torch.int32)
             w_cells = None if cross else w_cells.to(torch.int32)
         if prune == "pivot":
-            v_pc = coords_t.index_select(0, v_ids.long())
-            w_pc = coords_w_t.index_select(0, w_ids.long())
+            v_pc = coords_t.index_select(0, v_pos)
+            w_pc = coords_w_t.index_select(0, w_pos)
         w_tiles = None
         if prune == "none":
             w_tiles = [

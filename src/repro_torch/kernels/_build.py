@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("pairdist", "mapassign", "compact")
+SOURCES = ("pairdist", "mapassign", "compact", "histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,9 @@ _SIGNATURES = {
     },
     "compact": {
         "verify_compact_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I] + [_P] * 3,
+    },
+    "histogram": {
+        "histogram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import compact as _compact
+from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import mapassign as _mapassign
 from repro_torch.kernels import pairdist as _pairdist
 from repro_torch.kernels import ref
@@ -49,13 +50,16 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
+_LAUNCHES = (_pairdist.LAUNCHES, _mapassign.LAUNCHES, _compact.LAUNCHES, _histogram.LAUNCHES)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_pairdist.LAUNCHES, **_mapassign.LAUNCHES, **_compact.LAUNCHES}
+    return {k: v for counts in _LAUNCHES for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pairdist.LAUNCHES, _mapassign.LAUNCHES, _compact.LAUNCHES):
+    for counts in _LAUNCHES:
         for k in counts:
             counts[k] = 0
 
@@ -349,3 +353,24 @@ def assign_membership(
 def unpack_membership(bits: Tensor, p: int) -> Tensor:
     """(N, ⌈p/32⌉) packed words → (N, p) bool whole-membership mask."""
     return ref.unpack_membership(bits, p)
+
+
+# ---------------------------------------------------------------------------
+# GoF cell counts of the distributed stats stage
+# ---------------------------------------------------------------------------
+
+
+def histogram(u: Tensor, t: int, weights: Tensor | None = None, *, backend: str = "auto") -> Tensor:
+    """Per-dimension histogram (m, t) float32 of CDF-space values u (n, m):
+    the sum of each row's weight (default 1) over the rows whose
+    ``clip(trunc(u·t), 0, t − 1)`` is the cell. Plain version:
+    ``ref.histogram``."""
+    if resolve_backend(backend, None, u) == "torch":
+        return ref.histogram(u, t, weights)
+    n = u.shape[0]
+    w = (
+        torch.ones((n,), dtype=torch.float32, device=u.device)
+        if weights is None
+        else weights.reshape(n).float()
+    )
+    return _histogram.histogram_cuda(u.float().contiguous(), w.contiguous(), int(t))

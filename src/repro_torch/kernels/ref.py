@@ -339,3 +339,30 @@ def map_assign(
     xm = pairdist(x, anchors, metric)
     cells, bits = assign_membership(xm, kernel_lo, kernel_hi, whole_lo, whole_hi)
     return xm, cells, bits
+
+
+def histogram_cells(u: Tensor, t: int) -> Tensor:
+    """(n, m) int64 cell ``clip(trunc(u·t), 0, t − 1)`` of each value, the
+    product in fp32. The clip is taken on the float product, which is the
+    reference's cell for every input (an out-of-range float-to-int cast is
+    undefined in torch): below 0 → 0, at or above t → t − 1, NaN → 0."""
+    v = torch.nan_to_num(u.float() * t, nan=0.0)
+    return torch.clamp(v, 0.0, float(t - 1)).to(torch.int64)
+
+
+def histogram(u: Tensor, t: int, weights: Tensor | None = None) -> Tensor:
+    """Per-dimension equal-width histogram of u in [0, 1): (n, m) -> (m, t)
+    float32 — the GoF cell counts (paper Eq. 9). ``weights``: optional (n,)
+    validity/padding mask; each row adds its weight to its cell. One pass
+    per cell over (n, m), no (n, m, t) one-hot."""
+    n, m = u.shape
+    cell = histogram_cells(u, t)
+    w = (
+        torch.ones((n, 1), dtype=torch.float32, device=u.device)
+        if weights is None
+        else weights.reshape(n, 1).float()
+    )
+    out = torch.zeros((m, t), dtype=torch.float32, device=u.device)
+    for c in range(t):
+        out[:, c] = ((cell == c) * w).sum(0)
+    return out

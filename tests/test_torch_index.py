@@ -184,14 +184,23 @@ def test_queries_perform_no_sampling_or_partitioning(monkeypatch):
     assert counts == after_build, f"query phase re-entered the build: {counts}"
 
 
-def test_fused_on_off_identical_and_distributed_not_ported():
+def test_fused_on_off_identical_and_distributed_not_ported(tmp_path):
+    """Fused and two-pass map phases answer identically; ``to_distributed``
+    on a world of 1 (gloo, in process) serves the same bytes."""
     r, q = _dataset(6)
     delta = _gap_delta(r, q, "l2", 0.02)
     on = index.build_index(r, _cfg(spjoin, "l2", delta, map_fused=True), device="cpu")
     off = index.build_index(r, _cfg(spjoin, "l2", delta, map_fused=False), device="cpu")
     assert on.query_batch(q).tobytes() == off.query_batch(q).tobytes()
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        on.to_distributed()
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/rdzv", world_size=1, rank=0
+    )
+    try:
+        dist_idx = on.to_distributed()
+        assert type(dist_idx).__name__ == "DistIndex"
+        assert dist_idx.query_batch(q).tobytes() == on.query_batch(q).tobytes()
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize(

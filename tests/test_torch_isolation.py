@@ -37,8 +37,8 @@ def test_package_imports_without_jax():
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "from repro_torch import convert\n"
-        "from repro_torch.core import index, spjoin, verify\n"
-        "from repro_torch.kernels import compact, ops\n"
+        "from repro_torch.core import distributed, index, spjoin, verify\n"
+        "from repro_torch.kernels import compact, histogram, ops\n"
         "from repro_torch.data import pipeline, synthetic\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
