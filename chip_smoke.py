@@ -914,7 +914,8 @@ def phase_distributed(x: torch.Tensor, delta: float, compact, idx, batches: list
     distributed_join over the compact join's rows with its config, pairs
     byte-identical to it; then DistIndex over the serving index (two query
     batches byte-identical to MetricIndex.query_batch, one insert). The
-    launch counts are set to 0 just before the join and read just after."""
+    launch and collective counts are set to 0 just before the join and
+    each DistIndex call and read just after it; returns the join's."""
     import torch.distributed as dist
 
     log("== distributed: torch.distributed (NCCL, world size 1) join and DistIndex serving")
@@ -972,28 +973,40 @@ def phase_distributed(x: torch.Tensor, delta: float, compact, idx, batches: list
         torch.cuda.synchronize()
         log(f"[distributed] DistIndex pinned {didx.pl.n_slots} slots, cap_v {didx.cap_v}, "
             f"in {time.perf_counter() - t0:.3f}s")
-        ops.reset_launch_counts()
-        distributed.reset_collective_counts()
+        # The DistIndex path's own counts: set to 0 just before each of its
+        # calls and read just after, before the MetricIndex reference runs.
         for i in (0, 1):
+            ops.reset_launch_counts()
+            distributed.reset_collective_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = didx.query_batch(batches[i])
             torch.cuda.synchronize()
             t_q = time.perf_counter() - t0
+            q_counts, q_coll = ops.launch_counts(), distributed.collective_counts()
             want = idx.query_batch(batches[i])
             same = got.tobytes() == want.tobytes()
             log(f"[distributed] DistIndex query batch {i}: {len(got)} pairs in {t_q:.3f}s, "
-                f"== MetricIndex.query_batch {same}")
+                f"== MetricIndex.query_batch {same}; launch counts {json.dumps(q_counts)}, "
+                f"collectives {json.dumps(q_coll)}")
             assert same
-        log(f"[distributed] DistIndex queries: launch counts {json.dumps(ops.launch_counts())}, "
-            f"collectives {json.dumps(distributed.collective_counts())}")
+            assert q_counts["map_assign"] > 0 and q_counts["pairdist_filtered"] > 0, q_counts
+            assert q_coll == {"serve.all_to_all": 3, "result.all_gather": 2}, q_coll
         n_old = idx.n_rows
         rows_new = batches[-1][: QUERY_BATCH // 4]  # query rows, not in the index
+        ops.reset_launch_counts()
+        distributed.reset_collective_counts()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         new_pairs, st = didx.insert_batch(rows_new)
         torch.cuda.synchronize()
+        t_ins = time.perf_counter() - t0
+        ins_counts, ins_coll = ops.launch_counts(), distributed.collective_counts()
         log(f"[distributed] DistIndex insert_batch: {st.n_delta} rows onto {st.n_resident} in "
-            f"{time.perf_counter() - t0:.3f}s, action {st.action}, new pairs {st.n_new_pairs}")
+            f"{t_ins:.3f}s, action {st.action}, new pairs {st.n_new_pairs} (cross {st.n_cross_pairs}); "
+            f"launch counts {json.dumps(ins_counts)}, collectives {json.dumps(ins_coll)}")
+        assert ins_counts["map_assign"] > 0 and ins_counts["pairdist_filtered"] > 0, ins_counts
+        assert ins_coll.get("serve.all_to_all") == 3, ins_coll  # ΔR×R_old through the serve stage
         rows = n_old + torch.randperm(rows_new.shape[0], device="cuda")[:256]
         log(f"[distributed] insert spot check: {spot_check(idx.data, new_pairs, delta, rows)}")
         assert idx.n_rows == n_old + rows_new.shape[0]

@@ -5,7 +5,9 @@ CPU with gloo.
   package's on a 1-device mesh, with the reference's plan injected
   (``convert.join_plan``) and the port in an in-process gloo world of 1.
   Packets and confidences within fp32 tolerance (different special-function
-  kernels), counts and verify counters exact.
+  kernels), counts and verify counters exact. The serve stage against the
+  reference's ``DistIndex`` over one index the JAX package built and the
+  port loaded: query and insert pairs byte-identical, the same insert stats.
 * Joins with 4 gloo ranks (spawned processes, file rendezvous): pairs
   byte-identical to brute force and to the port's single-host ``join`` for
   l1/l2/linf, self and R×S, mask and compact emission, lpt and contiguous
@@ -236,6 +238,33 @@ def test_dist_index_world_of_one(world1, metric):
     want_ins, st_host = host.insert_batch(new)
     assert got_ins.tobytes() == want_ins.tobytes() and st.action == st_host.action
     assert mine.query_batch(q).tobytes() == host.query_batch(q).tobytes()
+
+
+@pytest.mark.parametrize("prune", ("pivot", "none"))
+def test_serve_stage_matches_reference(world1, tmp_path, prune):
+    """The serve stage against the reference's DistIndex on a 1-device mesh:
+    one index built by the JAX package, saved, and loaded into the port;
+    query batches, an insert and the grown index answer identically."""
+    jax, jnp, jd, _, mesh, _ = _jax()
+    from repro.core import index as jindex
+    from repro.core import spjoin as jspjoin
+
+    x, _, _, q, new = _sets()
+    delta = _delta("l1", False)
+    ref = jindex.build_index(x, jspjoin.JoinConfig(delta=delta, metric="l1", backend="numpy",
+                                                   prune=prune, **JOIN_KW))
+    mine = index.MetricIndex.load(ref.save(str(tmp_path / "ref")), device="cpu").to_distributed()
+    theirs = ref.to_distributed(mesh)
+    assert mine.prune == theirs.prune == prune
+    for d in (delta, delta * 1.3):
+        want = theirs.query_batch(q, d)
+        assert len(want) > 0 and mine.query_batch(q, d).tobytes() == want.tobytes()
+    got_ins, st = mine.insert_batch(new)
+    want_ins, st_ref = theirs.insert_batch(new)
+    assert len(want_ins) > 0 and got_ins.tobytes() == want_ins.tobytes()
+    assert (st.action, st.n_new_pairs, st.n_cross_pairs) == (
+        st_ref.action, st_ref.n_new_pairs, st_ref.n_cross_pairs)
+    assert mine.query_batch(q).tobytes() == theirs.query_batch(q).tobytes()
 
 
 def test_dist_index_rejects_kernel_less_metrics(world1):
