@@ -5,21 +5,32 @@
 Phases, in order; any failure raises and exits non-zero (nothing is caught):
   1. environment — card name and power limit, torch/CUDA versions, TF32 off;
   2. build       — every CUDA kernel compiled from the sources in the
-                   checkout with nvcc for sm_90a, in parallel (timed);
+                   checkout with nvcc for sm_90a, in parallel (timed), with
+                   each kernel's registers and spill bytes from ptxas;
   3. kernels     — each kernel against its plain PyTorch version on the card
                    at ragged shapes and at the main path's shapes, with times
-                   (kernel, plain, library yardstick) and the roofline bound;
-                   verify-compact self and R x S, with and without pivot
-                   coordinates, and with a forced overflow; the histogram
-                   at ragged shapes, edge values and zero weights, and at
-                   the stats stage's 1,000,000 x 128, t = 8 (exact);
+                   (kernel wrapper, ops call, plain, library yardstick) and
+                   the roofline bound; verify-compact self and R x S, with
+                   and without pivot coordinates, and with a forced
+                   overflow; the verify tile's paths (bp 1/3/8/17, m
+                   33/100/128, rows one row or one float into a buffer,
+                   tiles smaller than a CTA, mixed live and dead sub-tiles),
+                   where the compact kernel's pairs must equal the filtered
+                   mask after validity and the min-cell rule exactly; live
+                   shares per skip granularity, both CTA tiles' times, and
+                   the cost of a 16-feature chunk (l1 against dot); the
+                   histogram at ragged shapes, edge values and zero
+                   weights, and at the stats stage's 1,000,000 x 128,
+                   t = 8 (exact);
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
                    counts reset before and read after and a brute-force spot
                    check of 256 rows. A probe predicts both; if they do not
                    fit their share of the time limit, the mask join is halved
-                   first, on a printed "reduced" line. Then the map-assign
+                   first, on a printed "reduced" line. The mask join's pairs
+                   equal the compact join's (among its rows when halved)
+                   byte for byte. Then the map-assign
                    kernel checked and timed at the main path's shapes, and a
                    50,000-row join of each emission mode under torch.profiler
                    (device busy share, time by kernel);
@@ -51,12 +62,14 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    and join_incremental over a 4-way split equals the join.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
-A full run takes about 9 minutes on an H100 (build ~15 s).
+A full run takes about 10 minutes on an H100 (build ~30 s).
 """
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -70,6 +83,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.core import distributed, index, partition, spjoin, verify  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import compact as _compact  # noqa: E402
+from repro_torch.kernels import pairdist as _pairdist  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -113,6 +128,35 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def entry_ms(lib_name: str, entry: str, *args, reps: int = 50) -> float:
+    """Milliseconds per launch of a kernel's C entry point called back to
+    back with its arguments marshalled once: the kernel's own time. (A
+    wrapper's host work per call, checks and output allocation, can take as
+    long as a 0.06 ms kernel on a busy host; wrapper_ms is timed apart.)"""
+    fn = getattr(_build.lib(lib_name), entry)
+    assert fn(*args) == 0, (entry, args)
+    return cuda_ms(lambda: fn(*args), reps)
+
+
+def filtered_args(x, y, px, py, out, delta: float, db: float, tile=None) -> tuple:
+    """The pairdist_filtered_launch arguments of an l1 launch, as the
+    wrapper passes them."""
+    a, b = x.shape[0], y.shape[0]
+    return (x.data_ptr(), y.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), a, b,
+            x.shape[1], px.shape[1], _build.METRIC_IDS["l1"], delta, db,
+            _pairdist.launch_plan("pairdist_filtered", x, a, b, tile),
+            _pairdist.stage_flags(x, y, px, py), _build.stream_ptr(x.device))
+
+
+def plain_args(x, y, out, metric: str, delta: float) -> tuple:
+    """The pairdist_launch arguments of a mask launch, as the wrapper
+    passes them."""
+    a, b = x.shape[0], y.shape[0]
+    return (x.data_ptr(), y.data_ptr(), None, out.data_ptr(), a, b, x.shape[1],
+            _build.METRIC_IDS[metric], 1, delta, _pairdist.launch_plan("pairdist", x, a, b),
+            _pairdist.stage_flags(x, y), _build.stream_ptr(x.device))
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -219,15 +263,66 @@ def phase_environment() -> dict:
     return {"smi": smi, "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
+def ptxas_report() -> list[dict]:
+    """Registers, spill bytes and static shared memory of every kernel
+    compiled in this process, from nvcc's ``-Xptxas -v`` report (names
+    demangled with c++filt where the toolkit's host has it)."""
+    rows = []
+    for src, text in _build.ptxas_log.items():
+        for line in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                rows.append(dict(source=src, mangled=m[1], kernel=m[1]))
+            elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                rows[-1].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            elif rows and (m := re.search(r"Used (\d+) registers", line)):
+                rows[-1]["registers"] = int(m[1])
+                if sm := re.search(r"(\d+) bytes smem", line):
+                    rows[-1]["smem"] = int(sm[1])
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r["kernel"] = n.replace("repro_torch::", "").split("(")[0]
+    return rows
+
+
+# The instantiation each main path launches (l1; the 128 x 128 tile; self,
+# pruned), by the name c++filt gives it, for the report line's registers.
+MAIN_INSTANCE = {
+    "pairdist": "pairdist_kernel<0, false, Tile<8, 8> >",
+    "pairdist_filtered": "pairdist_kernel<0, true, Tile<8, 8> >",
+    "map_assign": "map_assign_kernel<0>",
+    "verify_compact": "verify_compact_kernel<0, true, false, Tile<8, 8> >",
+    "histogram": "histogram_kernel",
+}
+
+
+def ptxas_of(ptx: list[dict], name: str) -> dict:
+    """Registers and spill bytes (stores + loads) of a kernel's main-path
+    instantiation, from :func:`ptxas_report`."""
+    for r in ptx:
+        if r["kernel"].endswith(MAIN_INSTANCE[name]):
+            return dict(registers=r.get("registers"),
+                        spill_bytes=r.get("spill_stores", 0) + r.get("spill_loads", 0))
+    return dict(registers=None, spill_bytes=None)
+
+
+def phase_build() -> list[dict]:
     log("== phase 2: build")
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.2f}s (per source {secs})")
     for name, text in _build.ptxas_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  ptxas[{name}] {line.strip()}")
+            if "error" in line.lower() or "warning" in line.lower():
+                log(f"  nvcc[{name}] {line.strip()}")
+    report = ptxas_report()
+    for r in report:
+        log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, spill stores "
+            f"{r.get('spill_stores')} loads {r.get('spill_loads')}, {r.get('smem')} bytes smem")
+    log(f"ptxas: {len(report)} kernels, spill bytes in all "
+        f"{sum(r.get('spill_stores', 0) + r.get('spill_loads', 0) for r in report)}")
+    return report
 
 
 def _mixture(n: int, m: int, seed: int) -> torch.Tensor:
@@ -269,16 +364,24 @@ def phase_kernels() -> dict:
     z = _mixture(a + b, m, 1)
     x, y = z[:a], z[a:]
     delta = float(ref.pairdist(x[:64], y, "l1").flatten().kthvalue(64 * b // 100).values)
-    ms = cuda_ms(lambda: ops.pairdist_mask(x, y, delta, "l1", backend="cuda"))
+    # The kernel's time: its C entry point called back to back (ms); its
+    # wrapper (ms_wrap) adds the checks and the output allocation, the ops
+    # call (ms_ops, what earlier runs timed) the bool conversion too.
+    out8 = torch.empty((a, b), dtype=torch.int8, device="cuda")
+    ms = entry_ms("pairdist", "pairdist_launch", *plain_args(x, y, out8, "l1", delta))
+    ms_wrap = cuda_ms(lambda: _pairdist.pairdist_cuda(x, y, "l1", delta), reps=20)
+    ms_ops = cuda_ms(lambda: ops.pairdist_mask(x, y, delta, "l1", backend="cuda"))
     plain = cuda_ms(lambda: ref.pairdist_mask(x, y, delta, "l1"))
     lib = cuda_ms(lambda: torch.cdist(x, y, p=1.0) <= delta)
     bms, by = bound_ms(4 * (a + b) * m + a * b, 2.0 * a * b * m)
     report["pairdist"] = dict(
         name="pairdist", route="cuda", source="src/repro_torch/kernels/csrc/pairdist.cu",
         replaces="src/repro/kernels/pairdist.py:111", max_abs_err=worst, ms=ms,
-        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib, wrapper_ms=ms_wrap, ops_ms=ms_ops,
     )
-    log(f"pairdist l1 {a}x{b}x{m} mask: kernel {ms:.4f} ms plain {plain:.4f} ms cdist {lib:.4f} ms bound {bms:.4f} ms ({by})")
+    log(f"pairdist l1 {a}x{b}x{m} mask: kernel {ms:.4f} ms (wrapper {ms_wrap:.4f}, ops call {ms_ops:.4f}) plain {plain:.4f} ms "
+        f"cdist {lib:.4f} ms bound {bms:.4f} ms ({by})")
+    tile_chunk_cost(x, y, delta)
 
     # --- filtered: mapped coordinates of sorted clustered rows, so some
     # 64x64 blocks are pruned whole and some are not.
@@ -315,16 +418,30 @@ def phase_kernels() -> dict:
     px, py = ref.pairdist(x, anchors, "l1"), ref.pairdist(y, anchors, "l1")
     delta = float(ref.pairdist(x[:64], y, "l1").flatten().kthvalue(64 * b // 100).values)
     db = ref.prune_delta(delta, "l1", float(max(x.abs().max(), y.abs().max())), m)
-    surv = int(ref.bound_mask(px, py, delta, db).sum())
-    ms = cuda_ms(lambda: ops.pairdist_mask_filtered(x, y, px, py, delta, "l1", delta_bound=db, backend="cuda"))
+    bound = ref.bound_mask(px, py, delta, db)
+    surv = int(bound.sum())
+    log_live_shares("pairdist_filtered main tile (unsorted rows)", bound)
+    out8 = torch.empty((a, b), dtype=torch.int8, device="cuda")
+    ms = entry_ms("pairdist", "pairdist_filtered_launch", *filtered_args(x, y, px, py, out8, delta, db))
+    ms64 = entry_ms("pairdist", "pairdist_filtered_launch", *filtered_args(x, y, px, py, out8, delta, db, 64))
+    ms_wrap = cuda_ms(lambda: _pairdist.pairdist_filtered_cuda(x, y, px, py, "l1", delta, db), reps=20)
+    ms_ops = cuda_ms(lambda: ops.pairdist_mask_filtered(x, y, px, py, delta, "l1", delta_bound=db, backend="cuda"))
     plain = cuda_ms(lambda: ref.pairdist_mask_filtered(x, y, px, py, delta, "l1", db))
     bms, by = bound_ms(4 * (a + b) * (m + 8) + a * b, 2.0 * a * b * 8 + 2.0 * surv * m)
     report["pairdist_filtered"] = dict(
         name="pairdist_filtered", route="cuda", source="src/repro_torch/kernels/csrc/pairdist.cu",
         replaces="src/repro/kernels/pairdist.py:214", max_abs_err=worst, ms=ms,
-        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, wrapper_ms=ms_wrap, ops_ms=ms_ops,
+        tile64_ms=ms64,
     )
-    log(f"pairdist_filtered l1 {a}x{b}x{m} (surviving pairs {surv}): kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
+    log(f"pairdist_filtered l1 {a}x{b}x{m} (surviving pairs {surv}): kernel {ms:.4f} ms (64x64 tile "
+        f"{ms64:.4f}, wrapper {ms_wrap:.4f}, ops call {ms_ops:.4f}) plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
+    q, pq = x[:256].contiguous(), px[:256].contiguous()
+    t128 = entry_ms("pairdist", "pairdist_filtered_launch", *filtered_args(q, y, pq, py, out8, delta, db, 128))
+    t64 = entry_ms("pairdist", "pairdist_filtered_launch", *filtered_args(q, y, pq, py, out8, delta, db, 64))
+    chosen = _pairdist.choose_tile(256, b, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"pairdist_filtered l1 256x{b}x{m} (a query batch's tile): 128x128 tile {t128:.4f} ms, "
+        f"64x64 tile {t64:.4f} ms; choose_tile takes {chosen}")
 
     # --- map-assign, both modes, p = 70 (three words, bit 31 in play).
     worst, any_top = 0.0, False
@@ -360,8 +477,155 @@ def phase_kernels() -> dict:
         replaces="src/repro/kernels/mapassign.py:133", max_abs_err=worst, library_ms=None,
     )
     check_verify_compact(report)
+    check_tile_paths()
     check_histogram(report)
     return report
+
+
+def block_live(bound: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Which (rows x cols) blocks of an (a, b) bound mask hold a survivor."""
+    a, b = bound.shape
+    t = torch.nn.functional.pad(bound, (0, (-b) % cols, 0, (-a) % rows))
+    return t.reshape(-(-a // rows), rows, -(-b // cols), cols).any(3).any(1)
+
+
+def mixed_ctas(bound: torch.Tensor, tile: int) -> int:
+    """Live CTAs of the tile x tile kernel tile holding a dead warp
+    sub-tile ((tile / 4) x 32 pairs): where the sub-tile vote skips work."""
+    sub, cta = block_live(bound, tile // 4, 32), block_live(bound, tile, tile)
+    per = tile // 32
+    subs = torch.nn.functional.pad(sub, (0, (-sub.shape[1]) % per, 0, (-sub.shape[0]) % 4))
+    full = subs.reshape(cta.shape[0], 4, cta.shape[1], per).all(3).all(1)
+    return int((cta & ~full).sum())
+
+
+def log_live_shares(label: str, bound: torch.Tensor) -> dict:
+    """The share of a tile's work that each skip granularity leaves live:
+    pairs (the bound survivors), 32x32 warp sub-tiles, 64x64 and 128x128
+    CTAs; and the live 128x128 CTAs that hold a dead sub-tile."""
+    sub, c64, c128 = block_live(bound, 32, 32), block_live(bound, 64, 64), block_live(bound, 128, 128)
+    shares = dict(pairs=float(bound.float().mean()), sub32=float(sub.float().mean()),
+                  cta64=float(c64.float().mean()), cta128=float(c128.float().mean()),
+                  mixed_cta128=mixed_ctas(bound, 128), live_cta128=int(c128.sum()))
+    log(f"live shares at the {label}: pairs {shares['pairs']:.4f}, 32x32 sub-tiles {shares['sub32']:.4f}, "
+        f"64x64 CTAs {shares['cta64']:.4f}, 128x128 CTAs {shares['cta128']:.4f}; live 128x128 CTAs "
+        f"with a dead sub-tile {shares['mixed_cta128']} of {shares['live_cta128']}")
+    return shares
+
+
+def tile_chunk_cost(x: torch.Tensor, y: torch.Tensor, delta: float) -> None:
+    """What one 16-feature chunk of the 128x128 tile costs the card at the
+    main tile: the plain pairdist mask kernel over m and 2m features, for
+    l1 (two fp32 instructions per pair-feature) and dot (one FMA). The
+    slope per chunk is set beside the time the chunk's fp32 instructions
+    take at the card's peak issue rate (67 TFLOP/s counts an FMA as two)."""
+    a, b, m = x.shape[0], y.shape[0], x.shape[1]
+    x2, y2 = torch.cat([x, x], 1), torch.cat([y, y], 1)
+    out = torch.empty((a, b), dtype=torch.int8, device="cuda")
+    for metric, per_pf in (("l1", 2), ("dot", 1)):
+        t1 = entry_ms("pairdist", "pairdist_launch", *plain_args(x, y, out, metric, delta))
+        t2 = entry_ms("pairdist", "pairdist_launch", *plain_args(x2, y2, out, metric, delta))
+        chunk_us = 1e3 * (t2 - t1) / (m / 16)
+        issue_us = 1e6 * a * b * 16 * per_pf / (FP32_FLOP_PER_S / 2)
+        log(f"chunk cost {metric}: {a}x{b} m={m} {t1:.4f} ms, m={2 * m} {t2:.4f} ms: {chunk_us:.3f} us per "
+            f"16-feature chunk against {issue_us:.3f} us of fp32 issue at peak ({issue_us / chunk_us:.3f})")
+
+
+def _placed(rows: torch.Tensor, offset: str) -> torch.Tensor:
+    """``rows`` as a contiguous tensor whose base is: fresh ("none"), one
+    row into a larger buffer ("row"), or one float into one ("float")."""
+    n, w = rows.shape
+    if offset == "none":
+        return rows.clone()
+    if offset == "row":
+        buf = torch.zeros((n + 1, w), device=rows.device)
+        buf[1:] = rows
+        return buf[1:]
+    buf = torch.zeros((n * w + 1,), device=rows.device)
+    buf[1:] = rows.flatten()
+    return buf[1:].view(n, w)
+
+
+def check_tile_paths() -> None:
+    """The filtered and verify-compact kernels against their plain versions
+    on the tile's other paths (l1): bp in {1, 3, 8, 17} pivot dimensions
+    (one staged slice or two; widths that are and are not multiples of 4);
+    m in {33, 100, 128} on rows one row into a buffer (33: 4-byte copies;
+    100, 128: still 16-byte aligned) or one float into one (4-byte copies
+    at any width); tiles smaller than either CTA tile; a 1024 x 2176 tile
+    (the 128 x 128 tile on 4-byte copies); and the main tile. Rows are
+    sorted by a mapped coordinate, so some warps' sub-tiles are dead and
+    others live.
+    On every tile: the filtered mask off the delta band equals the plain
+    one; the compact kernel (self and R x S) has no pair off the band
+    against its plain version, its pairs equal the filtered kernel's mask
+    ANDed with validity and the min-cell rule exactly (one core), and its
+    candidate count equals the plain bound mask's valid pairs exactly."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = ((300, 700, 33, "row"), (300, 700, 100, "row"), (300, 700, 128, "row"),
+             (300, 700, 100, "float"), (300, 700, 128, "float"), (50, 40, 128, "none"),
+             (100, 90, 33, "row"), (1, 1, 128, "none"), (1024, 2176, 33, "row"),
+             (1024, 4096, 128, "none"))
+    paths, worst_band, n_mixed = set(), 0, 0
+    for bp in (1, 3, 8, 17):
+        anchors = _mixture(bp, 128, 60 + bp)
+        for a, b, m, offset in cases:
+            z = _mixture(a + b, m, 40 + bp)
+            pz = ref.pairdist(z, anchors[:, :m].contiguous(), "l1")
+            order = pz[:, 0].argsort()  # sorted rows: dead and live blocks
+            z, pz = z[order], pz[order]
+            sel = torch.randperm(a + b, generator=torch.Generator(device="cuda").manual_seed(bp), device="cuda")
+            xi, yi = sel[:a].sort().values, sel[a:].sort().values
+            x, y = _placed(z[xi], offset), _placed(z[yi], offset)
+            px, py = _placed(pz[xi], offset), _placed(pz[yi], offset)
+            d64 = pairdist64(x, y, "l1")
+            delta = float(d64.flatten().kthvalue(max(1, d64.numel() // 1000)).values)
+            db = ref.prune_delta(delta, "l1", float(max(x.abs().max(), y.abs().max())), m)
+            flags = _pairdist.stage_flags(x, y, px, py)
+            tile = _pairdist.choose_tile(a, b, n_sm)
+            paths.add((bool(flags & _pairdist.VEC_ROWS), bool(flags & _pairdist.VEC_PIVOTS), tile))
+            mask = count_one_launch("pairdist_filtered", lambda: ops.pairdist_mask_filtered(
+                x, y, px, py, delta, "l1", delta_bound=db, backend="cuda"))
+            d_plain = ref.pairdist(x, y, "l1")
+            tol = pair_tol(x, y, "l1", d64, ops.pairdist(x, y, "l1", backend="cuda"), d_plain)
+            mm = mask_mismatch(mask, ref.pairdist_mask_filtered(x, y, px, py, delta, "l1", db), d_plain, delta, tol)
+            bound = ref.bound_mask(px, py, delta, db)
+            vids = torch.arange(a, dtype=torch.int32, device="cuda")
+            wids = torch.arange(b, dtype=torch.int32, device="cuda")
+            vids[a - a // 10 :] = -1  # the last tenth of each side is padding
+            wids[b - b // 10 :] = -1
+            wcells = (torch.arange(b, device="cuda", dtype=torch.int32) * 7) % 5
+            line = []
+            for cross in (False, True):
+                kw = dict(delta=delta, metric="l1", cross=cross, delta_bound=db, capacity=a * b)
+                gp, gc, gn = count_one_launch("verify_compact", lambda: ops.verify_compact(
+                    x, y, vids, wids, wcells, 2, px, py, backend="cuda", **kw))
+                wp, _, wn = ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="torch", **kw)
+                k_keys = _pair_keys(gp)
+                _, band, off = keys_off_band(k_keys, _pair_keys(wp), x, y, "l1", delta, d64)
+                vi, wi = torch.nonzero(mask, as_tuple=True)
+                vh, wh = vids[vi].long(), wids[wi].long()
+                keep = ref.emit_keep(vh, wh, None if cross else wcells[wi].long(), 2, cross)
+                same = torch.equal(k_keys, (vh[keep] * (1 << 32) + wh[keep]).sort().values)
+                valid = (vids[:, None] >= 0) & (wids[None, :] >= 0)
+                n_cand = int((bound & valid).sum())
+                assert off == 0 and same and int(gc) == k_keys.numel() and int(gn) == n_cand == int(wn), (
+                    bp, a, b, m, offset, cross, off, same, int(gc), k_keys.numel(), int(gn), n_cand, int(wn))
+                worst_band = max(worst_band, band)
+                line.append(f"{'RxS' if cross else 'self'} {int(gc)} pairs (band {band})")
+            cta = block_live(bound, tile, tile)
+            mixed = mixed_ctas(bound, tile)
+            n_mixed += mixed
+            log(f"tile paths l1 bp={bp} {a}x{b}x{m} {offset}: tile {tile}, 16-byte rows {bool(flags & 1)}, "
+                f"16-byte pivots {bool(flags & 2)}; filtered mismatches {mm}; compact == mask & validity "
+                f"& rule: {', '.join(line)}; CTAs live {int(cta.sum())} of {cta.numel()}, "
+                f"live with a dead warp sub-tile {mixed}")
+            assert mm == 0, (bp, a, b, m, offset, mm)
+    log(f"tile paths exercised (16-byte rows, 16-byte pivots, tile): {sorted(paths)}; most delta-band "
+        f"pairs {worst_band}; live CTAs with a dead warp sub-tile {n_mixed}")
+    assert n_mixed > 0, "no tile had both dead and live warp sub-tiles in one CTA"
+    for want in ((True, True, 128), (False, False, 128), (True, False, 64), (False, False, 64)):
+        assert want in paths, (want, paths)
 
 
 def check_histogram(report: dict) -> None:
@@ -412,6 +676,24 @@ def _pair_keys(pairs: torch.Tensor) -> torch.Tensor:
     return (p[:, 0] * (1 << 32) + p[:, 1]).sort().values
 
 
+def keys_off_band(k_keys, p_keys, x, y, metric: str, delta: float, d64) -> tuple:
+    """The pair keys found by only one of kernel and plain version, and how
+    many of them lie in the delta band (plain distance within its stated
+    tolerance of delta, ``dist_tol``) and off it. Returns (diff, band, off)."""
+    uniq, cnt = torch.unique(torch.cat([k_keys, p_keys]), return_counts=True)
+    diff = uniq[cnt == 1]
+    band = off = 0
+    if diff.numel():
+        i, j = diff >> 32, diff & 0xFFFFFFFF
+        d_plain = ref.pairdist(x, y, metric)[i, j]
+        d_k = ops.pairdist(x, y, metric, backend="cuda")[i, j]
+        nx, ny = x[i].double().norm(dim=1), y[j].double().norm(dim=1)
+        tol = dist_tol(metric, x.shape[1], nx, ny, d64[i, j], d_k, d_plain)
+        off = int(((d_plain.double() - delta).abs() > tol).sum())
+        band = int(diff.numel()) - off
+    return diff, band, off
+
+
 def compact_tile(x, y, metric: str, coords: bool):
     """Ids and pivot coordinates of a verify-compact test tile: V ids 0..a-1
     and W ids 0..b-1 (so an id is its row), the last rows padding (-1), W
@@ -455,18 +737,7 @@ def check_verify_compact_tile(x, y, metric: str, cross: bool, coords: bool) -> t
     assert gn == wn, (metric, cross, coords, gn, wn)
     assert bool((gp[:gc] >= 0).all()) and bool((gp[gc:] == -1).all()), "count != filled slots"
     k_keys, p_keys = _pair_keys(gp), _pair_keys(wp)
-    both = torch.cat([k_keys, p_keys])
-    uniq, cnt = torch.unique(both, return_counts=True)
-    diff = uniq[cnt == 1]
-    band = off = 0
-    if diff.numel():
-        i, j = diff >> 32, diff & 0xFFFFFFFF
-        d_plain = ref.pairdist(x, y, metric)[i, j]
-        d_k = ops.pairdist(x, y, metric, backend="cuda")[i, j]
-        nx, ny = x[i].double().norm(dim=1), y[j].double().norm(dim=1)
-        tol = dist_tol(metric, m, nx, ny, d64[i, j], d_k, d_plain)
-        off = int(((d_plain.double() - delta).abs() > tol).sum())
-        band = int(diff.numel()) - off
+    diff, band, off = keys_off_band(k_keys, p_keys, x, y, metric, delta, d64)
     assert off == 0, f"{off} compact pairs differ off the delta band"
     assert gc - wc == int(torch.isin(diff, k_keys).sum()) - int(torch.isin(diff, p_keys).sum())
     cap = max(gc // 3, 1)
@@ -510,7 +781,27 @@ def check_verify_compact(report: dict) -> None:
     count, n_cand = int(count), int(n_cand)
     cap = verify.bucket_size(2 * count + verify._EMIT_FLOOR, a * b)
     kw = dict(capacity=cap, delta=delta, metric="l1", delta_bound=db)
-    ms = cuda_ms(lambda: ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="cuda", **kw))
+    log_live_shares("verify_compact main tile (sorted rows)", ref.bound_mask(px, py, delta, db))
+
+    # The kernel's own time through its C entry point (the counter keeps
+    # growing over the repeats, so after the first launch no pair is
+    # written: 26,099 pairs of 8 bytes, next to 10 MB of rows read).
+    pairs = torch.full((cap, 2), -1, dtype=torch.int32, device="cuda")
+    counters = torch.zeros((2,), dtype=torch.int32, device="cuda")
+
+    def entry(tile=None):
+        return (x.data_ptr(), y.data_ptr(), px.data_ptr(), py.data_ptr(), vids.data_ptr(),
+                wids.data_ptr(), wcells.data_ptr(), 2, a, b, m, px.shape[1], _build.METRIC_IDS["l1"],
+                1, 0, delta, db, cap, _pairdist.launch_plan("verify_compact", x, a, b, tile),
+                _pairdist.stage_flags(x, y, px, py), pairs.data_ptr(), counters.data_ptr(),
+                _build.stream_ptr(x.device))
+
+    ms = entry_ms("compact", "verify_compact_launch", *entry())
+    ms64 = entry_ms("compact", "verify_compact_launch", *entry(64))
+    ms_wrap = cuda_ms(lambda: _compact.verify_compact_cuda(
+        x, y, vids, wids, wcells, 2, px, py, metric="l1", delta=delta, delta_bound=db, capacity=cap,
+        cross=False), reps=20)
+    ms_ops = cuda_ms(lambda: ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="cuda", **kw))
     plain = cuda_ms(lambda: ops.verify_compact(x, y, vids, wids, wcells, 2, px, py, backend="torch", **kw))
     # Bytes: rows and pivot coordinates, ids and cells read once, the pair
     # buffer and the counters written once. Operations: the bound pass over
@@ -524,10 +815,12 @@ def check_verify_compact(report: dict) -> None:
         # allowed and counted in delta_band_pairs).
         replaces="src/repro/kernels/compact.py:179", max_abs_err=float(worst_off), ms=ms,
         plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, delta_band_pairs=worst_band,
+        wrapper_ms=ms_wrap, ops_ms=ms_ops, tile64_ms=ms64,
     )
     log(f"verify_compact: most pairs of one tile off the delta band {worst_off}, in the band {worst_band}")
     log(f"verify_compact l1 {a}x{b}x{m} self (count {count}, bound survivors {n_cand}, capacity {cap}): "
-        f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms (64x64 tile {ms64:.4f}, wrapper {ms_wrap:.4f}, ops call {ms_ops:.4f}) plain {plain:.4f} ms "
+        f"bound {bms:.4f} ms ({by})")
 
 
 def check_map_assign(x, anchors, boxes, metric, got, want) -> tuple[float, int, int, int, int]:
@@ -772,7 +1065,13 @@ def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Te
     if n_mask == n_compact:
         same = res_m.pairs.tobytes() == res_c.pairs.tobytes()
         log(f"compact == mask pairs at N={n_mask}: {same}")
-        assert same
+    else:
+        # Both joins are exact, so the mask join over the first n_mask rows
+        # holds exactly the compact join's pairs among those rows.
+        sub = res_c.pairs[(res_c.pairs < n_mask).all(1)]
+        same = res_m.pairs.tobytes() == sub.tobytes()
+        log(f"mask pairs at N={n_mask} == the compact join's pairs among those rows ({len(sub)}): {same}")
+    assert same
     check_and_time_map_assign(report, x[:n_compact], spjoin.JoinConfig(delta=delta))
     return counts_m, counts_c, x[:n_compact], delta, res_c
 
@@ -1127,7 +1426,7 @@ def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
     log(env["smi"])
-    phase_build()
+    ptx = phase_build()
     report = phase_kernels()
     log(f"[{elapsed():.1f}s] kernels checked")
     # The main path's rows, then fresh rows of the same mixture for the
@@ -1155,7 +1454,7 @@ def main() -> None:
     }
     kernels = []
     for name, n in launches.items():
-        kernels.append({**report[name], "launches": n})
+        kernels.append({**report[name], **ptxas_of(ptx, name), "launches": n})
     log(env["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"], "count": env["count"]}}))

@@ -41,14 +41,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "pairdist": {
-        "pairdist_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "pairdist_filtered_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+        "pairdist_launch": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+        "pairdist_filtered_launch": [_P] * 5 + [_I] * 5 + [_F, _F, _I, _I, _P],
     },
     "mapassign": {
         "map_assign_launch": [_P] * 9 + [_I] * 8 + [_P],
     },
     "compact": {
-        "verify_compact_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I] + [_P] * 3,
+        "verify_compact_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _I] + [_P] * 3,
     },
     "histogram": {
         "histogram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],

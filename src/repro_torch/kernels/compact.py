@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pairdist import MAX_ROWS
+from repro_torch.kernels.pairdist import launch_plan, stage_flags
 
 Tensor = torch.Tensor
 
@@ -49,14 +49,14 @@ def verify_compact_cuda(
     """Returns ``(pairs (capacity, 2) int32, counts (2,) int32)`` with
     ``counts = [true hit total, candidate count]``. ``x``/``y`` are float32
     (cosine rows pre-normalised by the caller); ids are int32 with -1 for
-    padding; ``wcells`` is unused (may be None) when ``cross``."""
+    padding; ``wcells`` is unused (may be None) when ``cross``. The CTA
+    tile and the staging path are chosen as for the filtered pairdist
+    kernel (``pairdist.launch_plan``, ``pairdist.stage_flags``)."""
     prune = px is not None
     _build.check_inputs("verify_compact", x, y, *((px, py) if prune else ()))
     _build.check_ids("verify_compact", vids, wids, *(() if cross else (wcells,)))
     a, b, m = x.shape[0], y.shape[0], x.shape[1]
     bp = px.shape[1] if prune else 0
-    if a > MAX_ROWS:
-        raise ValueError(f"verify_compact: at most {MAX_ROWS} x rows per launch, got {a}")
     if y.shape[1] != m or vids.shape[0] != a or wids.shape[0] != b or (
         not cross and wcells.shape[0] != b
     ) or (prune and (px.shape[0] != a or py.shape != (b, bp))):
@@ -67,14 +67,16 @@ def verify_compact_cuda(
     pairs = torch.full((capacity, 2), -1, dtype=torch.int32, device=x.device)
     counts = torch.zeros((2,), dtype=torch.int32, device=x.device)
     if a and b:
+        tile = launch_plan("verify_compact", x, a, b)
         lib = _build.lib("compact")
         rc = lib.verify_compact_launch(
             x.data_ptr(), y.data_ptr(),
             px.data_ptr() if prune else None, py.data_ptr() if prune else None,
             vids.data_ptr(), wids.data_ptr(), None if cross else wcells.data_ptr(),
             int(cell_id), a, b, m, bp, _build.METRIC_IDS[metric], int(prune), int(cross),
-            float(delta), float(delta_bound), int(capacity),
-            pairs.data_ptr(), counts.data_ptr(), _build.stream_ptr(x.device),
+            float(delta), float(delta_bound), int(capacity), tile,
+            stage_flags(x, y, px, py), pairs.data_ptr(), counts.data_ptr(),
+            _build.stream_ptr(x.device),
         )
         LAUNCHES["verify_compact"] += 1
         _build.check("compact", rc, "verify_compact launch")

@@ -134,7 +134,8 @@ def pairdist_mask_filtered(
 ) -> Tensor:
     """Fused pivot-filter + thresholded join mask (a, b) bool; identical to
     :func:`pairdist_mask`, but the kernel skips the exact work of every
-    64x64 tile the bound prunes entirely."""
+    CTA tile, and of every warp's 32x32 sub-tile, that the bound prunes
+    entirely."""
     if not supports_prune(metric):
         raise ValueError(
             f"pivot filter is unsound for {metric!r} (needs the triangle "

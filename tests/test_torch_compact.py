@@ -152,3 +152,18 @@ def test_dispatch_rules_and_wrapper_checks():
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     p, c, n = ops.verify_compact(tx[:0], ty, tv[:0], tw, twc, 2, capacity=4, **kw)
     assert (p == -1).all() and p.shape == (4, 2) and int(c) == int(n) == 0
+
+
+def test_compact_launch_choices_follow_the_filtered_kernel():
+    """verify_compact_cuda takes its tile and staging path from the same
+    host logic as the filtered pairdist kernel (one tile core): rows
+    without pivot coordinates stage on the rows' alignment alone."""
+    from repro_torch.kernels import pairdist
+
+    assert compact.launch_plan is pairdist.launch_plan
+    assert compact.stage_flags is pairdist.stage_flags
+    x = torch.zeros((6, 100))
+    assert compact.stage_flags(x, x, None, None) == pairdist.VEC_ROWS
+    assert compact.stage_flags(x[:, :33].contiguous(), x[:, :33].contiguous(), None, None) == 0
+    p = torch.zeros((6, 8))
+    assert compact.stage_flags(x, x, p, p) == pairdist.VEC_ROWS | pairdist.VEC_PIVOTS

@@ -218,3 +218,73 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     box = torch.zeros((32, 8))
     with pytest.raises(ValueError, match="CUDA"):
         mapassign.map_assign_cuda(x, None, box, box, box, box, None, 8, True, True)
+
+
+# --- host-side launch choices of the verify-tile wrappers (no card needed)
+
+
+@pytest.mark.parametrize(
+    "a, b, n_sm, tile",
+    [
+        (1024, 4096, 132, 128),  # the engine's tile: 8 x 32 = 256 CTAs of 128 x 128
+        (256, 4096, 132, 64),  # a query batch: 2 x 32 = 64 large CTAs, so 4 x 64 small ones
+        (1024, 2176, 132, 128),  # 8 x 17 = 136 >= 132
+        (1024, 2048, 132, 64),  # 8 x 16 = 128 < 132
+        (1, 1, 132, 64),  # nothing fills the card: the small tile
+        (129, 129, 4, 128),  # 2 x 2 = 4 CTAs on a 4-SM card
+        (128, 128, 4, 64),
+    ],
+)
+def test_choose_tile_by_grid(a, b, n_sm, tile):
+    from repro_torch.kernels import pairdist
+
+    assert pairdist.choose_tile(a, b, n_sm) == tile
+
+
+def test_launch_plan_checks_tile_and_grid_rows():
+    from repro_torch.kernels import pairdist
+
+    x = torch.zeros((2, 4))
+    assert pairdist.launch_plan("t", x, 1024, 4096, tile=64) == 64
+    rows = pairdist.MAX_GRID_Y * 64
+    assert pairdist.launch_plan("t", x, rows, 8, tile=64) == 64
+    with pytest.raises(ValueError, match="x rows per launch"):
+        pairdist.launch_plan("t", x, rows + 1, 8, tile=64)
+    assert pairdist.launch_plan("t", x, rows + 1, 8, tile=128) == 128
+    with pytest.raises(ValueError, match="tile must be one of"):
+        pairdist.launch_plan("t", x, 8, 8, tile=32)
+
+
+def _at_float_offset(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` copied one float into a buffer: contiguous, 4-byte aligned
+    but not 16-byte aligned."""
+    buf = torch.zeros(rows.numel() + 1)
+    buf[1:] = rows.flatten()
+    return buf[1:].view(rows.shape)
+
+
+@pytest.mark.parametrize("m", (33, 100, 128))
+def test_stage_flags_from_width_and_alignment(m):
+    from repro_torch.kernels import pairdist
+
+    base = torch.zeros((11, m))
+    assert base.data_ptr() % 16 == 0
+    vec = pairdist.VEC_ROWS if m % 4 == 0 else 0
+    assert pairdist.stage_flags(base, base) == vec
+    # One row in: the base moves by 4 m bytes, aligned again when m % 4 == 0.
+    assert pairdist.stage_flags(base[1:], base[3:]) == vec
+    # One float in: 4-byte copies whatever the width.
+    assert pairdist.stage_flags(_at_float_offset(base[:5]), base) == 0
+    assert pairdist.stage_flags(base, _at_float_offset(base[:5])) == 0
+
+
+@pytest.mark.parametrize("bp", (1, 3, 8, 16, 17))
+def test_stage_flags_for_pivot_coordinates(bp):
+    from repro_torch.kernels import pairdist
+
+    x = torch.zeros((9, 128))
+    p = torch.zeros((9, bp))
+    pivots = pairdist.VEC_PIVOTS if bp % 4 == 0 else 0
+    assert pairdist.stage_flags(x, x, p, p) == pairdist.VEC_ROWS | pivots
+    assert pairdist.stage_flags(x, x, p[1:], p[2:]) == pairdist.VEC_ROWS | pivots
+    assert pairdist.stage_flags(x, x, _at_float_offset(p), p) == pairdist.VEC_ROWS
