@@ -18,10 +18,16 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    where the compact kernel's pairs must equal the filtered
                    mask after validity and the min-cell rule exactly; live
                    shares per skip granularity, both CTA tiles' times, and
-                   the cost of a 16-feature chunk (l1 against dot); the
-                   histogram at ragged shapes, edge values and zero
-                   weights, and at the stats stage's 1,000,000 x 128,
-                   t = 8 (exact);
+                   the cost of a 16-feature chunk (l1 against dot);
+                   map-assign at n_dims and p past 64 and 32 (n_dims
+                   8/16/64/72/130 x p 16/100/1024 x every metric and want,
+                   ragged rows; every launch plan bit-identical to the
+                   default one); the histogram at ragged shapes, edge
+                   values, zero weights, rows one float into a buffer and
+                   t in 1/8/383/384/1024/5000/20000 (registers, shared and
+                   global counting), and at the stats stage's 1,000,000 x
+                   128, t = 8 (exact, torch.equal), timed through its C
+                   entry point against its 0.25 ms target;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -31,7 +37,11 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    first, on a printed "reduced" line. The mask join's pairs
                    equal the compact join's (among its rows when halved)
                    byte for byte. Then the map-assign
-                   kernel checked and timed at the main path's shapes, and a
+                   kernel checked at the main path's shapes and timed
+                   through its C entry point (both launches, against their
+                   0.33 and 0.022 ms targets), its wrapper and the ops call,
+                   a query batch's launch at 256 and 4,096 rows under the
+                   launch plan and under 256-row CTAs, and a
                    50,000-row join of each emission mode under torch.profiler
                    (device busy share, time by kernel);
   serving        — build_index over the main path's rows, 8 timed query
@@ -59,7 +69,9 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    the stated per-pair tolerance (``dist_tol``); emit="compact"
                    and prune="window" joins equal the default join byte for
                    byte (l1, l2, R x S), a forced-overflow compact join too,
-                   and join_incremental over a 4-way split equals the join.
+                   and join_incremental over a 4-way split equals the join;
+                   an l1 join with n_dims = 72 on the kernels equals the
+                   plain join (backend="torch" on the card) byte for byte.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
 A full run takes about 10 minutes on an H100 (build ~30 s).
@@ -84,6 +96,8 @@ from repro_torch.core import distributed, index, partition, spjoin, verify  # no
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as _compact  # noqa: E402
+from repro_torch.kernels import histogram as _histogram  # noqa: E402
+from repro_torch.kernels import mapassign as _mapassign  # noqa: E402
 from repro_torch.kernels import pairdist as _pairdist  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
@@ -291,9 +305,10 @@ def ptxas_report() -> list[dict]:
 MAIN_INSTANCE = {
     "pairdist": "pairdist_kernel<0, false, Tile<8, 8> >",
     "pairdist_filtered": "pairdist_kernel<0, true, Tile<8, 8> >",
-    "map_assign": "map_assign_kernel<0>",
+    "map_assign": "map_assign_kernel<0, 8, 0>",
+    "map_assign_member": "map_assign_stream_kernel<2, 2>",
     "verify_compact": "verify_compact_kernel<0, true, false, Tile<8, 8> >",
-    "histogram": "histogram_kernel",
+    "histogram": "histogram_reg_kernel<8, true>",
 }
 
 
@@ -476,6 +491,7 @@ def phase_kernels() -> dict:
         name="map_assign", route="cuda", source="src/repro_torch/kernels/csrc/mapassign.cu",
         replaces="src/repro/kernels/mapassign.py:133", max_abs_err=worst, library_ms=None,
     )
+    check_map_assign_shapes()
     check_verify_compact(report)
     check_tile_paths()
     check_histogram(report)
@@ -628,28 +644,59 @@ def check_tile_paths() -> None:
         assert want in paths, (want, paths)
 
 
+HIST_CELLS = (1, 8, 383, 384, 1024, 5000, 20_000)  # t of the histogram sweep
+
+
+def histogram_args(u, w, out, t: int, plan=None) -> tuple:
+    """The histogram_launch arguments, as the wrapper passes them."""
+    n, m = u.shape
+    if plan is None:
+        plan = _histogram.launch_plan(n, m, t, torch.cuda.get_device_properties(0).multi_processor_count)
+    vec = int(m % 4 == 0 and u.data_ptr() % 16 == 0)
+    return (u.data_ptr(), w.data_ptr(), out.data_ptr(), n, m, t, plan.mode, plan.tmax, plan.qb,
+            plan.copies, plan.grid_x, plan.grid_y, vec, _build.stream_ptr(u.device))
+
+
 def check_histogram(report: dict) -> None:
     """The histogram kernel against its plain version: ragged shapes, every
-    edge value of the cell rule, weights with zeros, and the stats stage's
-    shape (1,000,000 x 128, t = 8) — counts are integers in float32, so
-    equality is exact. One launch per call."""
+    edge value of the cell rule, weights with zeros, rows one float into a
+    buffer (scalar loads), every t of HIST_CELLS (registers, per-warp and
+    single shared histograms, global atomics), and the stats stage's shape
+    (1,000,000 x 128, t = 8) — counts are integers in float32, so equality
+    is exact (torch.equal). One launch per call. Then the stats stage's
+    shape timed through the C entry point, the wrapper and the ops call."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     edges = torch.tensor([0.0, 1.0 - 2.0**-24, 1.0, -0.5, 7.0, 1e30, float("nan"),
                           float("inf"), -float("inf")], device="cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
-    for n, m, t in ((1000, 33, 8), (1000, 33, 16), (77, 5, 4), (4099, 130, 16), (1_000_000, 128, 8)):
+    cases = [(1000, 33, 8, "none"), (1000, 33, 16, "none"), (77, 5, 4, "none"), (4099, 130, 16, "none"),
+             (3001, 128, 8, "float")]
+    cases += [(4099 + t % 7, 33 if t % 2 else 130, t, "none") for t in HIST_CELLS]
+    cases += [(2000, 128, 1024, "float"), (1_000_000, 128, 8, "none")]
+    modes = set()
+    for n, m, t, offset in cases:
         u = torch.rand((n, m), generator=gen, device="cuda") * 1.1 - 0.05
         u[: edges.numel()] = edges[:, None]  # every edge value in every column
+        u = _placed(u, offset)
         w = (torch.rand((n,), generator=gen, device="cuda") > 0.25).float()
+        plan = _histogram.launch_plan(n, m, t, n_sm)
+        modes.add(plan.mode)
+        assert plan.smem == _build.lib("histogram").histogram_smem_bytes(  # the host's mirror
+            t, plan.qb, plan.mode, plan.tmax, plan.copies), plan
         got = count_one_launch("histogram", lambda: ops.histogram(u, t, w, backend="cuda"))
         want = ref.histogram(u, t, w)
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"histogram {n}x{m} t={t}: max_abs_err {err} (exact {bool(torch.equal(got, want))}), "
-            f"weight sum {float(w.sum()):.0f} x {m} = total {float(got.sum()):.0f}")
-        assert torch.equal(got, want), (n, m, t)
+        log(f"histogram {n}x{m} t={t} {offset}: {plan} exact {bool(torch.equal(got, want))} "
+            f"(max_abs_err {err}), weight sum {float(w.sum()):.0f} x {m} = total {float(got.sum()):.0f}")
+        assert torch.equal(got, want), (n, m, t, offset)
+    assert modes == {_histogram.REGISTERS, _histogram.SHARED, _histogram.GLOBAL}, modes
     n, m, t = u.shape[0], u.shape[1], 8
-    ms = cuda_ms(lambda: ops.histogram(u, t, w, backend="cuda"))
+    out = torch.zeros((m, t), device="cuda")
+    ms = entry_ms("histogram", "histogram_launch", *histogram_args(u, w, out, t))
+    ms_wrap = cuda_ms(lambda: _histogram.histogram_cuda(u, w, t), reps=20)
+    ms_ops = cuda_ms(lambda: ops.histogram(u, t, w, backend="cuda"))
     plain = cuda_ms(lambda: ref.histogram(u, t, w), reps=3)
     # Library yardstick: one torch.bincount with weights over the flat
     # dim·t + cell index, precomputed outside the timing (the time is the
@@ -661,13 +708,16 @@ def check_histogram(report: dict) -> None:
                        ref.histogram(u, t, w))
     del flat, wf
     bms, by = bound_ms(4 * n * m + 4 * n + 4 * m * t, 3.0 * n * m)
+    occ = _build.lib("histogram").histogram_occupancy(8)
     report["histogram"] = dict(
         name="histogram", route="cuda", source="src/repro_torch/kernels/csrc/histogram.cu",
         replaces="src/repro/kernels/histogram.py:42", max_abs_err=worst, ms=ms,
-        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib, wrapper_ms=ms_wrap, ops_ms=ms_ops,
+        ctas_per_sm=occ,
     )
-    log(f"histogram {n}x{m} t={t}: kernel {ms:.4f} ms plain {plain:.4f} ms "
-        f"bincount {lib:.4f} ms bound {bms:.4f} ms ({by})")
+    log(f"histogram {n}x{m} t={t} ({_histogram.launch_plan(n, m, t, n_sm)}, {occ} CTAs per SM): "
+        f"kernel {ms:.4f} ms (wrapper {ms_wrap:.4f}, ops call {ms_ops:.4f}) plain {plain:.4f} ms "
+        f"bincount {lib:.4f} ms bound {bms:.4f} ms ({by}); target <= 0.25 ms: {'met' if ms <= 0.25 else 'MISSED'}")
 
 
 def _pair_keys(pairs: torch.Tensor) -> torch.Tensor:
@@ -834,29 +884,174 @@ def check_map_assign(x, anchors, boxes, metric, got, want) -> tuple[float, int, 
     xm_p, cells_p, bits_p = want
     tol = pair_tol(x, anchors, metric, pairdist64(x, anchors, metric), xm, xm_p)
     gap = (xm.double() - xm_p.double()).abs()
-    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
-    for i in range(0, x.shape[0], 1 << 16):
-        xs, ts = xm_p[i : i + (1 << 16), None, :].double(), tol[i : i + (1 << 16), None, :]
-        for edge in boxes:
-            near[i : i + (1 << 16)] |= ((xs - edge[None].double()).abs() <= ts).any(-1).any(-1)
+    near = near_edges(xm_p, tol, boxes)
     cm = int(((cells != cells_p) & ~near).sum())
     bm = int(((bits != bits_p).any(1) & ~near).sum())
     return float(gap.max()), int((gap > tol).sum()), cm, bm, int(near.sum())
 
 
-def check_and_time_map_assign(report: dict, x: torch.Tensor, cfg) -> None:
+def near_edges(xm_p: torch.Tensor, tol: torch.Tensor, boxes) -> torch.Tensor:
+    """Rows whose plain coordinates lie within their tolerance of any box
+    edge, in row chunks of at most 2^24 (row, box, dim) terms."""
+    n, nd = xm_p.shape
+    step = max(1, (1 << 24) // (boxes[0].shape[0] * nd))
+    near = torch.zeros(n, dtype=torch.bool, device=xm_p.device)
+    for i in range(0, n, step):
+        xs, ts = xm_p[i : i + step, None, :].double(), tol[i : i + step, None, :]
+        for edge in boxes:
+            near[i : i + step] |= ((xs - edge[None].double()).abs() <= ts).any(-1).any(-1)
+    return near
+
+
+MAP_DIMS = (8, 16, 64, 72, 130)  # n_dims of the shape sweep: one and several dim blocks
+MAP_PARTS = (16, 100, 1024)  # partitions of the shape sweep
+
+
+def open_boxes(xm: torch.Tensor, p: int, gen: torch.Generator) -> tuple:
+    """p kernel boxes over mapped rows ``xm`` (n, n_dims): each bounds 3
+    random dimensions by order-statistic intervals and leaves the others
+    open (±1e30), so every dimension block decides some boxes and a row
+    falls in a few; the whole boxes are the kernel boxes grown by 1 % of
+    the widest spread."""
+    n, nd = xm.shape
+    srt = xm.sort(0).values
+    lo = torch.full((p, nd), -1e30, device="cuda")
+    hi = torch.full((p, nd), 1e30, device="cuda")
+    dims = torch.rand((p, nd), generator=gen, device="cuda").argsort(1)[:, :3]
+    q = torch.rand((p, 2), generator=gen, device="cuda").sort(1).values
+    i_lo = (q[:, :1] * 0.5 * (n - 1)).long().expand(-1, 3)
+    i_hi = ((0.5 + 0.5 * q[:, 1:]) * (n - 1)).long().expand(-1, 3)
+    rows = torch.arange(p, device="cuda")[:, None].expand(-1, 3)
+    lo[rows, dims] = srt[i_lo, dims]
+    hi[rows, dims] = srt[i_hi, dims]
+    grow = 0.01 * float((srt[-1] - srt[0]).max())
+    return lo, hi, lo - grow, hi + grow
+
+
+def forced_plans(n: int, nap: int, pp: int, p: int, metric_mode: bool) -> list:
+    """Every plan the map-assign kernel can be launched with at these
+    shapes: each rows-per-CTA choice, with the card's shared memory and
+    with a 48 KB budget (more word and dim blocks), where one fits."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = _mapassign.ROWS if metric_mode else _mapassign.ASSIGN_ROWS
+    plans = []
+    for r in rows:
+        for budget in (_mapassign.SMEM_OPTIN, 48 * 1024):
+            try:
+                plan = _mapassign.launch_plan(n, nap, pp, p, metric_mode, n_sm, budget, rows=r)
+            except ValueError:  # no block fits this budget at this CTA size
+                continue
+            if plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+def check_map_assign_shapes() -> None:
+    """The map-assign kernel against its plain version over one and
+    several dim and word blocks: n_dims in MAP_DIMS x p in MAP_PARTS x every metric x
+    every want, on ragged rows (m = 100, 16-byte copies, or 33, 4-byte
+    copies): coordinates within ``dist_tol``, cells and bits equal off box
+    edges, the assign-only mode exact on the plain coordinates. Then every
+    plan (``forced_plans``: rows per CTA, word and dim blocks) gives the
+    default plan's outputs bit for bit, in both modes."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    n_checks = n_plans = 0
+    worst = 0.0
+    for nd in MAP_DIMS:
+        for p in MAP_PARTS:
+            n = 997 + 13 * nd + p
+            m = 33 if (nd + p) % 3 == 0 else 100
+            x = _mixture(n, m, 30 + nd)
+            anchors = x[torch.randperm(n, generator=gen, device="cuda")[:nd]]
+            edge_rows = 0
+            for metric in ref.METRICS:
+                boxes = open_boxes(ref.pairdist(x, anchors, metric), p, gen)
+                tol = near = None
+                for want in ops.WANTS:
+                    got = count_one_launch("map_assign", lambda: ops.map_assign(
+                        x, anchors, *boxes, metric, backend="cuda", want=want))
+                    plain = ops.map_assign(x, anchors, *boxes, metric, backend="torch", want=want)
+                    if near is None:
+                        tol = pair_tol(x, anchors, metric, pairdist64(x, anchors, metric), got[0], plain[0])
+                        near = near_edges(plain[0], tol, boxes)
+                    gap = (got[0].double() - plain[0].double()).abs()
+                    over = int((gap > tol).sum())
+                    cm = int(((got[1] != plain[1]) & ~near).sum())
+                    bm = int(((got[2] != plain[2]).any(1) & ~near).sum())
+                    c_k, b_k = count_one_launch("map_assign", lambda: ops.assign_membership(
+                        plain[0], *boxes, backend="cuda", want=want))
+                    c_p, b_p = ops.assign_membership(plain[0], *boxes, backend="torch", want=want)
+                    exact = bool(torch.equal(c_k, c_p) and torch.equal(b_k, b_p))
+                    assert over == 0 and cm == 0 and bm == 0 and exact, (nd, p, metric, want, over, cm, bm, exact)
+                    n_checks += 1
+                    if metric == "l1":
+                        worst = max(worst, float(gap.max()))
+                edge_rows = max(edge_rows, int(near.sum()))
+            # Every plan gives the default plan's bits (l1, both outputs).
+            xp, ap = ops._prep(x, anchors, "l1")
+            pb = ops._prep_boxes(*open_boxes(ref.pairdist(x, anchors, "l1"), p, gen))
+            nap, pp = pb[0].shape[1], pb[0].shape[0]
+            base = _mapassign.map_assign_cuda(xp, ap, *pb, "l1", nd, True, True, p=p)
+            base_a = _mapassign.map_assign_cuda(base[0], None, *pb, None, nd, True, True, p=p)
+            lib = _build.lib("mapassign")
+            for metric_mode in (True, False):
+                for plan in forced_plans(n, nap, pp, p, metric_mode):
+                    # The host's layout mirror against the kernel's own.
+                    assert plan.smem == lib.map_assign_smem_bytes(
+                        plan.rows, plan.db, plan.pw, int(metric_mode), int(plan.stream)), plan
+                    if metric_mode:
+                        out = _mapassign.map_assign_cuda(xp, ap, *pb, "l1", nd, True, True, p=p, plan=plan)
+                        same = all(torch.equal(u, v) for u, v in zip(out, base))
+                    else:
+                        out = _mapassign.map_assign_cuda(base[0], None, *pb, None, nd, True, True, p=p, plan=plan)
+                        same = all(torch.equal(u, v) for u, v in zip(out[1:], base_a[1:]))
+                    assert same, (nd, p, metric_mode, plan)
+                    n_plans += 1
+            log(f"map_assign shapes n={n} m={m} n_dims={nd} p={p}: 5 metrics x {len(ops.WANTS)} wants exact "
+                f"off edges (most near-edge rows {edge_rows}); plans bit-identical: "
+                f"{len(forced_plans(n, nap, pp, p, True))} metric-mode, {len(forced_plans(n, nap, pp, p, False))} assign-only")
+    log(f"map_assign shape sweep: {n_checks} (shape, metric, want) checks and {n_plans} forced plans, "
+        f"0 coordinates over tolerance, 0 cell or bit mismatches off box edges, assign-only exact; "
+        f"l1 max_abs_err {worst:.3e} ({time.perf_counter() - t0:.1f}s)")
+
+
+def map_assign_args(x, anchors, boxes, out, metric: str | None, want: str, p: int, plan) -> tuple:
+    """The map_assign_launch arguments, as the wrapper passes them: ``x``
+    and ``anchors`` prepared (``ops._prep``; anchors None in the
+    assign-only mode), ``boxes`` padded (``ops._prep_boxes``), ``out`` the
+    (xm, cells, bits) buffers (xm None in the assign-only mode)."""
+    cells, member = ops._want_flags(want)
+    n = x.shape[0]
+    pp, nap = boxes[0].shape
+    na = x.shape[1] if anchors is None else anchors.shape[0]
+    vec = int(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0)
+    return (x.data_ptr(), None if anchors is None else anchors.data_ptr(),
+            *(b.data_ptr() for b in boxes), None if out[0] is None else out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), n, x.shape[1], na, nap, pp,
+            -1 if metric is None else _build.METRIC_IDS[metric], int(cells), int(member),
+            plan.rows, plan.a, plan.db, plan.pw, p, plan.grid, int(plan.stream), vec,
+            _build.stream_ptr(x.device))
+
+
+def check_and_time_map_assign(report: dict, x: torch.Tensor, cfg, ptx: list) -> None:
     """The map-assign kernel at the main path's shapes, in both of the
     modes the main path launches it: the metric mode over all rows with the
     plan's boxes (``want="cells"``), then the assign-only mode over the
     mapped rows with the tightened plan (``want="member"``). Each is checked
     against its plain version on the same inputs (coordinates within
-    tolerance and cells equal off box edges; membership exact) and timed;
-    the report row carries the sum of the two launches."""
+    tolerance and cells equal off box edges; membership exact) and timed
+    through its C entry point (the kernel), its wrapper and the ops call;
+    the report row carries the sum of the two launches. Then the query
+    path's launch (metric mode, ``want="member"``) at a 256- and a
+    4,096-row batch, under the launch plan and under 256-row CTAs."""
     anchors, plan = main_path_plan(x, cfg)
     boxes = (plan.kernel_lo, plan.kernel_hi, plan.whole_lo, plan.whole_hi)
     n, m = x.shape
     na, p = anchors.shape[0], plan.p
     words = -(-p // ref.MEMBER_WORD)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build.lib("mapassign")
 
     def metric_mode(backend):
         return ops.map_assign(x, anchors, *boxes, cfg.metric, backend=backend, want="cells")
@@ -877,18 +1072,77 @@ def check_and_time_map_assign(report: dict, x: torch.Tensor, cfg) -> None:
     log(f"map_assign assign-only n={n} dims={na} p={p} want=member (tightened plan): "
         f"exact {exact}, rows in >1 partition {int((ops.unpack_membership(b_p, p).sum(1) > 1).sum())}")
     assert exact
-    ms_m = cuda_ms(lambda: metric_mode("cuda"), reps=5)
-    ms_a = cuda_ms(lambda: assign_mode("cuda"), reps=5)
+    # The kernel's time: each launch's C entry point back to back.
+    xp, ap = ops._prep(x, anchors, cfg.metric)
+    pb, tpb = ops._prep_boxes(*boxes), ops._prep_boxes(*tboxes)
+    nap, pp = pb[0].shape[1], pb[0].shape[0]
+    plan_m = _mapassign.launch_plan(n, nap, pp, p, True, n_sm)
+    plan_a = _mapassign.launch_plan(n, nap, pp, p, False, n_sm)
+    xm_in = want[0].contiguous()
+    out_m = (torch.empty((n, na), device="cuda"), torch.empty(n, dtype=torch.int32, device="cuda"),
+             torch.empty((n, pp // 32), dtype=torch.int32, device="cuda"))
+    out_a = (None, torch.empty_like(out_m[1]), torch.empty_like(out_m[2]))
+    args_m = map_assign_args(xp, ap, pb, out_m, cfg.metric, "cells", p, plan_m)
+    args_a = map_assign_args(xm_in, None, tpb, out_a, None, "member", p, plan_a)
+    ms_m = entry_ms("mapassign", "map_assign_launch", *args_m)
+    ms_a = entry_ms("mapassign", "map_assign_launch", *args_a)
+    assert torch.equal(out_m[1], got[1]) and torch.equal(out_a[2][:, :words], b_k)  # the same launches
+    wrap_m = cuda_ms(lambda: _mapassign.map_assign_cuda(xp, ap, *pb, cfg.metric, na, True, False, p=p), reps=10)
+    wrap_a = cuda_ms(lambda: _mapassign.map_assign_cuda(xm_in, None, *tpb, None, na, False, True, p=p), reps=10)
+    ops_m = cuda_ms(lambda: metric_mode("cuda"), reps=5)
+    ops_a = cuda_ms(lambda: assign_mode("cuda"), reps=5)
     plain_m = cuda_ms(lambda: metric_mode("torch"), reps=2)
     plain_a = cuda_ms(lambda: assign_mode("torch"), reps=2)
+    occ_m = lib.map_assign_occupancy(0, plan_m.a, 1, 0, plan_m.smem, 0)
+    occ_a = lib.map_assign_occupancy(-1, 1, 0, 1, plan_a.smem, plan_a.rows // 256 if plan_a.stream else 0)
     # Bytes: each input read once, each wanted output written once.
-    n_bytes = 4 * (n * m + na * m + 4 * p * na + n * (na + 1))  # metric mode
-    n_bytes += 4 * (n * na + 4 * p * na + n * words)  # assign-only mode
+    bytes_m = 4 * (n * m + na * m + 4 * p * na + n * (na + 1))  # metric mode, want="cells"
+    bytes_a = 4 * (n * na + 4 * p * na + n * words)  # assign-only mode, want="member"
     n_ops = 2.0 * n * na * m + 2.0 * n * p * na + 2.0 * n * p * na
-    bms, by = bound_ms(n_bytes, n_ops)
-    report["map_assign"].update(ms=ms_m + ms_a, plain_ms=plain_m + plain_a, bound_ms=bms, bound_by=by)
-    log(f"map_assign main-path pair of launches: kernel {ms_m:.4f} + {ms_a:.4f} ms, "
-        f"plain {plain_m:.4f} + {plain_a:.4f} ms, bound {bms:.4f} ms ({by})")
+    bms, by = bound_ms(bytes_m + bytes_a, n_ops)
+    bm_m, _ = bound_ms(bytes_m, 2.0 * n * na * m + 2.0 * n * p * na)
+    bm_a, _ = bound_ms(bytes_a, 2.0 * n * p * na)
+    report["map_assign"].update(
+        ms=ms_m + ms_a, plain_ms=plain_m + plain_a, bound_ms=bms, bound_by=by,
+        metric_ms=ms_m, assign_ms=ms_a, wrapper_ms=wrap_m + wrap_a, ops_ms=ops_m + ops_a,
+        ctas_per_sm=[occ_m, occ_a], **{f"assign_{k}": v for k, v in ptxas_of(ptx, "map_assign_member").items()},
+    )
+    log(f"map_assign main-path launches through the C entry point: metric mode {ms_m:.4f} ms "
+        f"(plan {plan_m}, {occ_m} CTAs per SM; bound {bm_m:.4f} ms, target <= 0.33 ms: "
+        f"{'met' if ms_m <= 0.33 else 'MISSED'}) + assign-only {ms_a:.4f} ms (plan {plan_a}, {occ_a} CTAs "
+        f"per SM; bound {bm_a:.4f} ms, target <= 0.022 ms: {'met' if ms_a <= 0.022 else 'MISSED'}); "
+        f"wrapper {wrap_m:.4f} + {wrap_a:.4f} ms, ops call {ops_m:.4f} + {ops_a:.4f} ms, "
+        f"plain {plain_m:.4f} + {plain_a:.4f} ms, bound of the pair {bms:.4f} ms ({by})")
+    for q in (256, 4096):  # the query path's launch at a batch's rows
+        xq = xp[:q].contiguous()
+        outq = tuple(t[:q].contiguous() for t in out_m)
+        line = []
+        for label, rows in (("launch plan", None), ("256-row CTAs", 256)):
+            pq = _mapassign.launch_plan(q, nap, pp, p, True, n_sm, rows=rows)
+            t = entry_ms("mapassign", "map_assign_launch",
+                         *map_assign_args(xq, ap, pb, outq, cfg.metric, "member", p, pq), reps=100)
+            line.append(f"{label} ({pq.grid} CTAs of {pq.rows} rows, {pq.a} anchors a thread) {t * 1e3:.2f} us")
+        log(f"map_assign query batch of {q} rows (metric mode, want=member): {'; '.join(line)}")
+
+
+def check_join_n_dims(n: int = 50_000, n_dims: int = 72) -> dict:
+    """A join with more than 64 mapped dims (several anchor blocks): l1,
+    ``n_dims`` anchors, on the kernels and on the plain versions (backend
+    "torch" on the card); pairs byte-identical (δ in a gap of the pair
+    distances). Returns the kernel join's launch counts (set to 0 just
+    before it, read just after)."""
+    x = _mixture(n, 128, 24)
+    delta = gap_delta(x, "l1", 10.0)
+    ops.reset_launch_counts()
+    res, t_k = run_join(x, spjoin.JoinConfig(delta=delta, n_dims=n_dims))
+    counts = ops.launch_counts()
+    plain, t_p = run_join(x, spjoin.JoinConfig(delta=delta, n_dims=n_dims, backend="torch"))
+    same = res.pairs.tobytes() == plain.pairs.tobytes()
+    log(f"l1 join n_dims={n_dims} N={n}: {res.n_pairs} pairs in {t_k:.2f}s ({res.verify_stats.n_tiles} tiles), "
+        f"plain join {t_p:.2f}s: byte-identical {same}; launch counts {json.dumps(counts)}")
+    assert same and res.n_pairs > 0
+    assert counts["map_assign"] > 0 and counts["pairdist_filtered"] > 0, counts
+    return counts
 
 
 def pick_delta(x: torch.Tensor, metric: str, mean_neighbours: float, y=None, sample: int = 2048) -> float:
@@ -1015,7 +1269,7 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
     return res, counts
 
 
-def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Tensor, float, object]:
+def phase_main_path(report: dict, z: torch.Tensor, ptx: list) -> tuple[dict, dict, torch.Tensor, float, object]:
     """The two main-path joins over the first N_ROWS rows of ``z``. The
     probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
@@ -1072,7 +1326,7 @@ def phase_main_path(report: dict, z: torch.Tensor) -> tuple[dict, dict, torch.Te
         same = res_m.pairs.tobytes() == sub.tobytes()
         log(f"mask pairs at N={n_mask} == the compact join's pairs among those rows ({len(sub)}): {same}")
     assert same
-    check_and_time_map_assign(report, x[:n_compact], spjoin.JoinConfig(delta=delta))
+    check_and_time_map_assign(report, x[:n_compact], spjoin.JoinConfig(delta=delta), ptx)
     return counts_m, counts_c, x[:n_compact], delta, res_c
 
 
@@ -1392,6 +1646,7 @@ def phase_exactness() -> dict:
         assert inc_counts["map_assign"] > 0 and inc_counts["pairdist_filtered"] > 0, inc_counts
         if metric == "l1":
             assert verdict == "byte-identical"
+    check_join_n_dims(n)
     x = _mixture(n, m, 21)
     delta = gap_delta(x, "l1", 10.0)
     base, _ = run_join(x, spjoin.JoinConfig(delta=delta))
@@ -1433,7 +1688,7 @@ def main() -> None:
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

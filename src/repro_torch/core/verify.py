@@ -415,8 +415,9 @@ def verify_cell_lists(
     have_coords = coords is not None and (not cross or coords_w is not None)
     prune = resolve_prune(config.prune, metric, have_coords)
     emit = resolve_emit(config.emit, metric)
-    delta_bound = None
-    if prune != "none":
+    if prune == "none":
+        delta_bound = None  # no filter runs: the emission prior reads delta
+    else:
         coords_t = _as_rows(coords, device)
         coords_w_t = _as_rows(coords_w, device) if cross else coords_t
         # One host copy of the coordinates for the control plane.

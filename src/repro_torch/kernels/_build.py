@@ -16,6 +16,7 @@ success); :func:`check` raises on anything else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,13 +46,17 @@ _SIGNATURES = {
         "pairdist_filtered_launch": [_P] * 5 + [_I] * 5 + [_F, _F, _I, _I, _P],
     },
     "mapassign": {
-        "map_assign_launch": [_P] * 9 + [_I] * 8 + [_P],
+        "map_assign_launch": [_P] * 9 + [_I] * 16 + [_P],
+        "map_assign_smem_bytes": [_I] * 5,
+        "map_assign_occupancy": [_I] * 6,
     },
     "compact": {
         "verify_compact_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _I] + [_P] * 3,
     },
     "histogram": {
-        "histogram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "histogram_launch": [_P] * 3 + [_I] * 10 + [_P],
+        "histogram_smem_bytes": [_I] * 5,
+        "histogram_occupancy": [_I],
     },
 }
 
@@ -148,6 +153,12 @@ def check_ids(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {t.device}")
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous 1-D int32 ids, got {t.dtype} {tuple(t.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``: the launch plans size their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -318,7 +318,7 @@ def map_assign(
     xp, ap = _prep(x, anchors, metric)
     xm, cells, bits = _mapassign.map_assign_cuda(
         xp, ap, *_prep_boxes(kernel_lo, kernel_hi, whole_lo, whole_hi),
-        metric=metric, n_dims=n_dims, want_cells=want_cells, want_member=want_member,
+        metric=metric, n_dims=n_dims, want_cells=want_cells, want_member=want_member, p=p,
     )
     return xm, cells, bits[:, :words]
 
@@ -346,7 +346,7 @@ def assign_membership(
     _, cells, bits = _mapassign.map_assign_cuda(
         xm.float().contiguous(), None,
         *_prep_boxes(kernel_lo, kernel_hi, whole_lo, whole_hi),
-        metric=None, n_dims=xm.shape[1], want_cells=want_cells, want_member=want_member,
+        metric=None, n_dims=xm.shape[1], want_cells=want_cells, want_member=want_member, p=p,
     )
     return cells, bits[:, :words]
 

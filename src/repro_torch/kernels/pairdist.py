@@ -29,7 +29,6 @@ plain versions are ``ref.pairdist``/``ref.pairdist_mask``/
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -68,16 +67,11 @@ def stage_flags(x: Tensor, y: Tensor, px: Tensor | None = None, py: Tensor | Non
     return flags
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def launch_plan(name: str, x: Tensor, a: int, b: int, tile: int | None = None) -> int:
     """The CTA tile of a launch over (a, b) pairs on ``x``'s card (``tile``
     forces one of ``TILES``); raises when the grid would exceed its rows."""
     if tile is None:
-        tile = choose_tile(a, b, _sm_count(x.device.index))
+        tile = choose_tile(a, b, _build.sm_count(x.device.index))
     if tile not in TILES:
         raise ValueError(f"{name}: tile must be one of {TILES}, got {tile}")
     if -(-a // tile) > MAX_GRID_Y:

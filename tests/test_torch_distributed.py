@@ -144,15 +144,47 @@ def test_counts_stage_matches_reference(world1, fused):
     np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
 
 
+FAR = 1e3  # the shift that puts one group of rows far from the origin
+
+
+def _far_sets(cross, far):
+    """The stage-parity sets; with ``far`` some rows shifted by ``FAR`` in
+    every feature, so they form a cell far from the origin and the
+    join-wide band (which scales with max |x|) is wider than the band of
+    the slots near the origin."""
+    x, r, s, _, _ = _sets()
+    x, r, s = x.copy(), r.copy(), s.copy()
+    if far:
+        x[:60] += FAR
+        r[:40] += FAR
+        s[:50] += FAR
+    return (r, s) if cross else (x,)
+
+
 @pytest.mark.parametrize("cross", (False, True))
 @pytest.mark.parametrize("strategy", ("contiguous", "lpt"))
 def test_verify_stage_matches_reference(world1, cross, strategy):
+    _check_verify_stage(cross, strategy, far=False)
+
+
+@pytest.mark.parametrize("cross", (False, True))
+@pytest.mark.parametrize("strategy", ("contiguous", "lpt"))
+def test_verify_stage_far_cell_matches_reference(world1, cross, strategy):
+    """One cell far from the origin: the join-wide band the executor passes
+    is wider than a slot's own, and the stage must filter with it."""
+    _check_verify_stage(cross, strategy, far=True)
+
+
+def _check_verify_stage(cross, strategy, far):
+    """The port's verify stage against the JAX stage at the same join-wide
+    band: hits, verified, candidates, the pruned counter, overflow, per-slot
+    areas and the pairs."""
     jax, jnp, jd, jverify, mesh, sh = _jax()
-    x, r, s, _, _ = _sets()
-    left = r if cross else x
-    delta = _delta("l1", cross)
+    arrays = _far_sets(cross, far)
+    left = arrays[0]
+    delta = _gap_delta(arrays[0], arrays[-1], "l1", 0.01)
     jplan, plan = _reference_plan(left, "l1", delta)
-    sets = [jd._pad_shard_set(jnp.asarray(a), 1, sh) for a in ((r, s) if cross else (x,))]
+    sets = [jd._pad_shard_set(jnp.asarray(a), 1, sh) for a in arrays]
     v_cnt, w_cnt, _, _ = (np.asarray(a) for a in jd.make_stage_counts(mesh, "data", jplan, "numpy")(
         sets[0][0], sets[0][1]))
     if cross:
@@ -167,13 +199,20 @@ def test_verify_stage_matches_reference(world1, cross, strategy):
                            prune="pivot", delta_bound=band)
     want = jd.make_stage_verify(mesh, "data", jplan, jcfg, cross=cross, pl=pl)(
         *[a for st in sets for a in st[:3]])
-    cfg = distributed.VerifyConfig(cap_v=cap_v, cap_w=cap_w, emit_pairs=True, backend="torch",
-                                   prune="pivot", delta_bound=band)
-    tsets = [distributed._pad_shard_set(torch.as_tensor(a), 1, 0) for a in ((r, s) if cross else (x,))]
-    got = distributed.make_stage_verify(plan, cfg, cross=cross, pl=pl)(
-        *[a for st in tsets for a in st[:3]])
+    tsets = [distributed._pad_shard_set(torch.as_tensor(a), 1, 0) for a in arrays]
+
+    def stage(delta_bound):
+        cfg = distributed.VerifyConfig(cap_v=cap_v, cap_w=cap_w, emit_pairs=True, backend="torch",
+                                       prune="pivot", delta_bound=delta_bound)
+        return distributed.make_stage_verify(plan, cfg, cross=cross, pl=pl)(
+            *[a for st in tsets for a in st[:3]])
+
+    got = stage(band)
     for k in ("hits", "verified", "candidates", "overflow"):
         assert got[k] == int(np.asarray(want[k]).sum()), k
+    # The pruned counter: verified pairs the join-wide band filtered out.
+    pruned = int(np.asarray(want["verified"]).sum()) - int(np.asarray(want["candidates"]).sum())
+    assert got["verified"] - got["candidates"] == pruned > 0
     assert got["per_cell_verified"].tolist() == np.asarray(want["per_cell_verified"]).astype(np.int64).tolist()
     assert 0 < got["candidates"] < got["verified"] and got["hits"] > 0
     masks = np.asarray(want["masks"])
@@ -182,6 +221,9 @@ def test_verify_stage_matches_reference(world1, cross, strategy):
     gj = np.asarray(want["w_ids"]).reshape(masks.shape[0], -1)[slot, wi]
     pr = np.stack([gi, gj], 1) if cross else np.sort(np.stack([gi, gj], 1), axis=1)
     assert np.unique(got["pairs"], axis=0).tobytes() == np.unique(pr.astype(np.int64), axis=0).tobytes()
+    if far:  # the data separates the bands: each slot's own band admits fewer
+        own = stage(None)
+        assert own["candidates"] < got["candidates"] and own["hits"] == got["hits"]
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,18 @@ def test_histogram_matches_reference(n, m, t):
     assert float(got.sum()) == float(w.sum()) * m
 
 
+@pytest.mark.parametrize("t", (384, 1024))
+def test_histogram_many_cells_matches_reference(t):
+    """t past 383 cells (the kernel plan's shared histograms over narrower
+    dim blocks): ``ops.histogram`` (the plain version on a CPU tensor)
+    against the JAX package's ``ref.histogram``, exact."""
+    u, w = _inputs(2000, 9, seed=t)
+    want = np.asarray(jref.histogram(jnp.asarray(u), t, jnp.asarray(w)))
+    got = ops.histogram(torch.as_tensor(u), t, torch.as_tensor(w))
+    assert got.shape == (9, t) and got.numpy().tobytes() == want.tobytes()
+    assert float(got.sum()) == float(w.sum()) * 9
+
+
 @pytest.mark.parametrize("value", EDGES.tolist(), ids=lambda v: repr(v))
 @pytest.mark.parametrize("t", (4, 8, 16))
 def test_edge_value_cells(value, t):

@@ -172,6 +172,59 @@ def test_map_assign_want_zero_fills(want):
     assert not (c.numpy().any() if want == "member" else b.numpy().any())
 
 
+def _open_boxes(xm, p, seed, delta=0.05):
+    """p kernel boxes over mapped coordinates ``xm`` (n, n_dims): each box
+    bounds 3 random dimensions by quantile intervals and leaves the rest
+    open (±1e30), so every dimension block matters and rows fall in a few
+    boxes each; the whole boxes are the kernel boxes grown by δ."""
+    rng = np.random.default_rng(seed)
+    n_dims = xm.shape[1]
+    lo = np.full((p, n_dims), -1e30, np.float32)
+    hi = np.full((p, n_dims), 1e30, np.float32)
+    for i in range(p):
+        dims = rng.choice(n_dims, 3, replace=False)
+        q = np.sort(rng.uniform(0.0, 1.0, 2))
+        lo[i, dims] = np.quantile(xm[:, dims], 0.5 * q[0], axis=0)
+        hi[i, dims] = np.quantile(xm[:, dims], 0.5 + 0.5 * q[1], axis=0)
+    return [lo, hi, lo - delta, hi + delta]
+
+
+@pytest.mark.parametrize("n_dims", (72, 130))
+@pytest.mark.parametrize("p", (33, 100))
+def test_map_assign_many_dims_and_partitions_matches_pallas(n_dims, p):
+    """Shapes past 64 mapped dims and 32 partitions (several dim and word
+    blocks in the kernel's plan): the port's map_assign and
+    assign_membership (their plain versions here) against the JAX
+    package's Pallas kernel in interpret mode, every ``want``; coordinates
+    within rtol = atol = 1e-5, cells and bits exact off box edges, and
+    exact on the same coordinates."""
+    rng = np.random.default_rng(n_dims + p)
+    x = rng.normal(size=(50, 16)).astype(np.float32)
+    anchors = rng.normal(size=(n_dims, 16)).astype(np.float32)
+    boxes = _open_boxes(_d64(x, anchors, "l1").astype(np.float32), p, seed=p)
+    tb = [torch.as_tensor(b) for b in boxes]
+    for want in ops.WANTS:
+        want_xm, want_c, want_b = (
+            np.asarray(v) for v in ref_ops.map_assign(x, anchors, *boxes, "l1", backend="pallas", want=want)
+        )
+        got_xm, got_c, got_b = (
+            v.numpy() for v in ops.map_assign(torch.as_tensor(x), torch.as_tensor(anchors), *tb, "l1", want=want)
+        )
+        assert got_xm.shape == (50, n_dims) and got_b.shape == (50, -(-p // 32))
+        np.testing.assert_allclose(got_xm, want_xm, rtol=1e-5, atol=1e-5)
+        near = np.zeros(len(x), bool)
+        for edge in boxes:
+            near |= (np.abs(want_xm[:, None, :] - edge[None]) <= 1e-5).any(-1).any(-1)
+        np.testing.assert_array_equal(got_c[~near], want_c[~near])
+        np.testing.assert_array_equal(got_b.view(np.uint32)[~near], want_b[~near])
+        rc, rb = ref_ops.assign_membership(want_xm, *boxes, backend="pallas", want=want)
+        gc, gb = ops.assign_membership(torch.as_tensor(want_xm), *tb, want=want)
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
+        np.testing.assert_array_equal(gb.numpy().view(np.uint32), np.asarray(rb))
+        if want == "both":  # the boxes select rows: cells past 0 and set bits
+            assert (want_c > 0).any() and want_b.any()
+
+
 def test_pack_unpack_roundtrip_bit31():
     rng = np.random.default_rng(0)
     member = torch.as_tensor(rng.random((20, 70)) < 0.5)
@@ -288,3 +341,102 @@ def test_stage_flags_for_pivot_coordinates(bp):
     assert pairdist.stage_flags(x, x, p, p) == pairdist.VEC_ROWS | pivots
     assert pairdist.stage_flags(x, x, p[1:], p[2:]) == pairdist.VEC_ROWS | pivots
     assert pairdist.stage_flags(x, x, _at_float_offset(p), p) == pairdist.VEC_ROWS
+
+
+# --- host-side launch plans of the map-assign and histogram wrappers
+
+
+@pytest.mark.parametrize("metric_mode", (True, False), ids=("metric", "assign-only"))
+@pytest.mark.parametrize("n", (1, 256, 4096, 50_000, 1_000_000))
+def test_map_assign_launch_plan_fits_and_covers(n, metric_mode):
+    from repro_torch.kernels import mapassign
+
+    n_sm = 132
+    for nap in (8, 16, 64, 72, 136, 256, 1024):
+        for pp, p in ((32, 1), (32, 16), (32, 32), (128, 100), (1024, 1000), (4096, 4096)):
+            for smem_max in (mapassign.SMEM_OPTIN, 64 * 1024):
+                plan = mapassign.launch_plan(n, nap, pp, p, metric_mode, n_sm, smem_max=smem_max)
+                key = (n, nap, pp, p, metric_mode, smem_max, plan)
+                # Fits the card's (or the given) shared memory.
+                assert plan.smem == mapassign.smem_bytes(
+                    plan.rows, plan.db, plan.pw, metric_mode, plan.stream), key
+                assert plan.smem <= smem_max, key
+                # Every row: tiles of `rows` rows, the last one ragged: one
+                # CTA each, or the persistent kernel's CTAs walking them.
+                rows = mapassign.ROWS if metric_mode else mapassign.ASSIGN_ROWS
+                tiles = -(-n // plan.rows)
+                assert plan.rows in rows and (tiles - 1) * plan.rows < n <= tiles * plan.rows, key
+                if plan.stream:
+                    assert not metric_mode and plan.rows >= mapassign.THREADS, key
+                    assert plan.db >= nap and plan.pw == pp // 32, key  # one block: edges staged once
+                    per_sm = min(mapassign.STREAM_CTAS, mapassign.SMEM_PER_SM // (plan.smem + 1024))
+                    assert per_sm >= 1 and 1 <= plan.grid <= min(tiles, per_sm * n_sm), key
+                    rounds = -(-tiles // plan.grid)
+                    assert rounds == -(-tiles // (per_sm * n_sm)), key  # no more rounds than a full grid
+                else:
+                    assert plan.grid == tiles, key
+                if n >= rows[-1] * n_sm and smem_max == mapassign.SMEM_OPTIN and not plan.stream:
+                    assert plan.grid >= n_sm, key  # the grid fills the card
+                # Every dimension: blocks of db (a multiple of 8) dims over nap.
+                assert plan.db % 8 == 0 and plan.db >= 8, key
+                if metric_mode:
+                    assert plan.a in mapassign.ANCHORS
+                    assert plan.db == (mapassign.THREADS // plan.rows) * plan.a, key
+                    assert plan.db >= nap or plan.a == mapassign.ANCHORS[-1] or smem_max < mapassign.SMEM_OPTIN, key
+                else:
+                    assert plan.a == 1 and plan.db <= min(nap, mapassign.SWEEP_DIMS), key
+                # Every cell: word blocks of pw words over pp / 32 words.
+                words = pp // 32
+                assert 1 <= plan.pw <= words and -(-words // plan.pw) * plan.pw >= words, key
+
+
+def test_map_assign_launch_plan_main_path_and_query_batches():
+    from repro_torch.kernels import mapassign
+
+    # The join's two launches over 1M rows: 256-row CTAs, 8 anchors a thread.
+    assert mapassign.launch_plan(1_000_000, 8, 32, 16, True, 132) == mapassign.MapPlan(
+        rows=256, a=8, db=8, pw=1, grid=3907, smem=83_232)
+    # The assign-only launch: the persistent kernel, 1,954 tiles of 512 rows
+    # in 5 rounds over 391 CTAs (3 per SM fit 132 SMs).
+    assert mapassign.launch_plan(1_000_000, 8, 32, 16, False, 132) == mapassign.MapPlan(
+        rows=512, a=1, db=8, pw=1, grid=391, smem=36_864, stream=True)
+    # Query batches: 32-row CTAs, a thread per (row, anchor).
+    for n, grid in ((256, 8), (4096, 128)):
+        plan = mapassign.launch_plan(n, 8, 32, 16, True, 132)
+        assert (plan.rows, plan.a, plan.db, plan.grid) == (32, 1, 8, grid)
+    with pytest.raises(ValueError, match="bad padded shape"):
+        mapassign.launch_plan(10, 12, 32, 16, True, 132)
+    with pytest.raises(ValueError, match="bad padded shape"):
+        mapassign.launch_plan(10, 8, 48, 16, True, 132)
+    with pytest.raises(ValueError, match="bad padded shape"):  # a word of padding only
+        mapassign.launch_plan(10, 8, 64, 16, True, 132)
+
+
+@pytest.mark.parametrize("t", (1, 8, 16, 17, 383, 384, 1024, 5000, 20_000, 1_000_000))
+def test_histogram_launch_plan_fits_and_covers(t):
+    from repro_torch.kernels import histogram
+
+    n_sm = 132
+    for n in (1, 77, 4099, 1_000_000):
+        for m in (1, 5, 33, 128, 130, 1000):
+            plan = histogram.launch_plan(n, m, t, n_sm)
+            key = (n, m, t, plan)
+            assert plan.smem == histogram.smem_bytes(t, plan.qb, plan.mode, plan.tmax, plan.copies), key
+            assert plan.smem <= histogram.SMEM_OPTIN, key
+            # Every dimension: grid_x blocks of qb quads (4 dims each).
+            assert plan.qb in (1, 2, 4, 8, 16, 32) and plan.grid_x == -(-m // (4 * plan.qb)), key
+            # Every row: strided ranges, at least one, within the grid's limit.
+            assert 1 <= plan.grid_y <= histogram.MAX_GRID_Y, key
+            assert plan.grid_y <= max(1, -(-n // (histogram.THREADS // plan.qb))), key
+            # Every cell: registers for t <= 16, shared histograms of t cells
+            # per dim in each copy, or global atomics (no limit).
+            if t <= 16:
+                assert plan.mode == histogram.REGISTERS and t <= plan.tmax in histogram.REG_CELLS, key
+            elif plan.mode == histogram.SHARED:
+                assert 1 <= plan.copies <= histogram.WARPS and plan.smem >= 4 * plan.copies * 4 * plan.qb * t, key
+            else:
+                assert plan.mode == histogram.GLOBAL and plan.smem == 0, key
+                assert 4 * 4 * (t | 1) > histogram.SMEM_OPTIN, key  # not even one quad fits
+    # The stats stage's shape: registers, 32 quads, 8 CTAs per SM.
+    assert histogram.launch_plan(1_000_000, 128, 8, n_sm) == histogram.HistPlan(
+        mode=histogram.REGISTERS, tmax=8, qb=32, copies=1, grid_x=1, grid_y=1056, smem=32_768)

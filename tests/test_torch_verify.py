@@ -167,6 +167,41 @@ def test_prune_band_matches_reference():
         assert verify.prune_band(0.5, metric, torch.as_tensor(a), torch.as_tensor(b)) == want
 
 
+@pytest.mark.parametrize("emit", ("mask", "compact"))
+def test_explicit_delta_bound_sets_the_filter(emit):
+    """A band the caller passes (the distributed executor's join-wide one)
+    is the pivot filter's threshold: ``n_pruned`` is the count of that
+    band's pruned pairs, Σ_h |{(v, w) ∈ V_h × W_h : max |xv − xw| > band}|
+    over the mapped coordinates, and None means the band of these rows."""
+    r, _, cells, member, xr, _, delta = _setup("l1", False)
+    order = np.argsort(cells, kind="stable")
+    bounds = np.searchsorted(cells[order], np.arange(member.shape[1] + 1))
+    v_lists = [order[bounds[h] : bounds[h + 1]] for h in range(member.shape[1])]
+    w_lists = [np.flatnonzero(member[:, h]) for h in range(member.shape[1])]
+    rows = torch.as_tensor(r)
+    cfg = verify.EngineConfig(tile_v=64, tile_w=96, prune="pivot", emit=emit)
+    got = {}
+    for band in (None, 0.5, 50.0):
+        pairs, st = verify.verify_cell_lists(
+            rows, cells, v_lists, w_lists, delta, "l1", config=cfg,
+            coords=torch.as_tensor(xr), delta_bound=band,
+        )
+        b = verify.prune_band(delta, "l1", rows) if band is None else band
+        want = sum(
+            int((np.abs(xr[v][:, None] - xr[w][None]).max(-1) > b).sum())
+            for v, w in zip(v_lists, w_lists)
+        )
+        assert st.n_pruned == want, (band, st.n_pruned, want)
+        got[band] = (pairs, st.n_pruned)
+    assert len({n for _, n in got.values()}) == 3, got
+    assert 0.5 < delta < verify.prune_band(delta, "l1", rows) < 50.0
+    # A wider band admits more candidates and the same pairs; a band below
+    # δ loses pairs (the filter is then unsound), never adds one.
+    assert got[50.0][0].tobytes() == got[None][0].tobytes()
+    kept = {tuple(p) for p in got[None][0].tolist()}
+    assert {tuple(p) for p in got[0.5][0].tolist()} < kept
+
+
 def test_empty_cells_and_no_hits():
     x = torch.zeros((0, 4))
     pairs, st = verify.verify_pairs(x, np.zeros(0, np.int64), np.zeros((0, 3), bool), 1.0, "l1")
