@@ -71,10 +71,26 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    byte (l1, l2, R x S), a forced-overflow compact join too,
                    and join_incremental over a 4-way split equals the join;
                    an l1 join with n_dims = 72 on the kernels equals the
-                   plain join (backend="torch" on the card) byte for byte.
+                   plain join (backend="torch" on the card) byte for byte;
+  6. comparison  — the paper's Fig. 9 on the card: SP-Join (generative +
+                   learning), KPM (``baselines.kpm_config``) and the two
+                   ball joins (``baselines.ball_join``, 16 and 32 pivots)
+                   over the four datasets of benchmarks/common.py built
+                   with the port's generators (netflix-, sift-, aol-like at
+                   N = 250,000; pubmed-like, jaccard_minhash on the plain
+                   path, cut to N = 100,000 on a printed "reduced" line), δ
+                   for ~10 neighbours per row; the four pair sets byte for
+                   byte equal and held against brute force, each arm's
+                   launch counts set to 0 before it and read after (ball
+                   joins: the plain pairdist kernel only; SP-Join and KPM:
+                   map-assign and the filtered kernel; pubmed-like: none);
+                   ``dedup`` over the aol-like profiles (pairs equal to the
+                   SP-Join arm's, keep mask equal to the lowest index of
+                   scipy's connected components); ``ops.pairdist_count``
+                   over 4,096 rows against the sift-like set.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
-A full run takes about 10 minutes on an H100 (build ~30 s).
+A full run takes about 13-14 minutes on an H100 (build ~30 s).
 """
 from __future__ import annotations
 
@@ -92,8 +108,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import distributed, index, partition, spjoin, verify  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.core import baselines, distances, distributed, index, partition, spjoin, verify  # noqa: E402
+from repro_torch.data import dedup as dedup_lib  # noqa: E402
+from repro_torch.data import synthetic, vectorize  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as _compact  # noqa: E402
 from repro_torch.kernels import histogram as _histogram  # noqa: E402
@@ -1147,11 +1164,14 @@ def check_join_n_dims(n: int = 50_000, n_dims: int = 72) -> dict:
 
 def pick_delta(x: torch.Tensor, metric: str, mean_neighbours: float, y=None, sample: int = 2048) -> float:
     """δ with about ``mean_neighbours`` neighbours in ``y`` (default ``x``)
-    per row of ``x``, from the distance quantile of a row sample."""
+    per row of ``x``, from the distance quantile of a row sample. Metrics
+    without a kernel take shorter row chunks (their plain distance
+    broadcasts over the features)."""
     self_join = y is None
     y = x if self_join else y
     q = x[torch.randperm(x.shape[0], device=x.device)[:sample]]
-    d = torch.cat([ref.pairdist(q[i : i + 256], y, metric) for i in range(0, q.shape[0], 256)])
+    step = 256 if metric in ref.METRICS else 16
+    d = torch.cat([distances.pairwise(q[i : i + step], y, metric) for i in range(0, q.shape[0], step)])
     # + the zero self-distances of a self-join
     k = int(mean_neighbours * q.shape[0]) + (q.shape[0] if self_join else 0)
     return float(d.flatten().kthvalue(k).values)
@@ -1219,11 +1239,15 @@ def run_join(x, cfg, **kw):
     return res, time.perf_counter() - t0
 
 
-def spot_check(x: torch.Tensor, pairs: np.ndarray, delta: float, rows: torch.Tensor) -> str:
-    """Every partner of the sampled ``rows`` by brute force on the card (l1,
-    plain version) against the join's pairs; a difference is allowed only
-    for a pair whose float64 distance is within 1e-5·max(1, δ) of δ."""
-    d = ref.pairdist(x[rows], x, "l1")
+def spot_check(x: torch.Tensor, pairs: np.ndarray, delta: float, rows: torch.Tensor,
+               metric: str = "l1") -> str:
+    """Every partner of the sampled ``rows`` by brute force on the card
+    (plain version) against the join's pairs. A difference is allowed only
+    for a pair whose float64 distance is within 1e-5·max(1, δ) of δ (l1),
+    within its stated l2 tolerance of δ (``dist_tol``, kernel and plain
+    distances both taken as the float64 one), and never for
+    ``jaccard_minhash``, whose fp32 distances k/64 are exact."""
+    d = distances.pairwise(x[rows], x, metric)
     hit = d <= delta
     hit[torch.arange(rows.numel(), device="cuda"), rows] = False
     pt = torch.as_tensor(pairs, device="cuda")
@@ -1233,8 +1257,15 @@ def spot_check(x: torch.Tensor, pairs: np.ndarray, delta: float, rows: torch.Ten
         got[j, partners] = True
     diff = (got != hit).nonzero()
     if diff.numel():
-        d64 = (x[rows[diff[:, 0]]].double() - x[diff[:, 1]].double()).abs().sum(1)
-        assert bool(((d64 - delta).abs() <= 1e-5 * max(1.0, delta)).all()), "join missed pairs"
+        assert metric in ("l1", "l2"), f"{metric}: join pairs differ from brute force"
+        xa, xb = x[rows[diff[:, 0]]].double(), x[diff[:, 1]].double()
+        if metric == "l1":
+            d64 = (xa - xb).abs().sum(1)
+            tol = torch.full_like(d64, 1e-5 * max(1.0, delta))
+        else:
+            d64 = (xa - xb).pow(2).sum(1).sqrt()
+            tol = dist_tol("l2", x.shape[1], xa.norm(dim=1), xb.norm(dim=1), d64, d64, d64)
+        assert bool(((d64 - delta).abs() <= tol).all()), "join missed pairs"
     return f"{rows.numel()} rows, {int(hit.sum())} partners, {diff.shape[0]} borderline differences"
 
 
@@ -1677,6 +1708,182 @@ def phase_exactness() -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# the paper's comparison (Fig. 9) and dedup
+# --------------------------------------------------------------------------
+
+FIG9_ROWS = 250_000  # rows of each dataset of the comparison
+FIG9_PUBMED_ROWS = 100_000  # the pubmed-like set's rows (cut: plain path only)
+STRINGS_PER_TEMPLATE = 47  # benchmarks/common.py: 1,500 strings over 32 templates
+FIG9_ARMS = ("spjoin", "kpm", "mrsim", "cluster")
+
+
+def fig9_datasets(n: int, n_pubmed: int) -> list[tuple[str, torch.Tensor, str]]:
+    """The paper's four datasets, built with the port's generators as
+    ``benchmarks/common.py`` builds them (seed 0), on the card:
+    (name, rows, metric)."""
+    nf = synthetic.mixture(n, 20, n_clusters=6, spread=6.0, skew=0.3, seed=0)
+    sift = synthetic.heavy_tailed(n, 32, alpha=2.5, seed=1)
+    strs = synthetic.strings(n, mutate=0.12, n_templates=n // STRINGS_PER_TEMPLATE, seed=2)
+    aol = vectorize.qgram_profile(strs, q=2, dim=64)
+    docs = synthetic.strings(n_pubmed, length=(24, 60), mutate=0.08,
+                             n_templates=n_pubmed // STRINGS_PER_TEMPLATE, seed=3)
+    pubmed = vectorize.minhash(vectorize.shingle_sets(docs, q=3), k=64).astype(np.float32)
+    return [
+        (name, torch.as_tensor(v).cuda(), metric)
+        for name, v, metric in (
+            ("netflix-like", nf, "l1"), ("sift-like", sift, "l2"),
+            ("aol-like", aol, "l1"), ("pubmed-like", pubmed, "jaccard_minhash"),
+        )
+    ]
+
+
+def fig9_arm(fn) -> tuple[object, float, dict]:
+    """One arm's join with the launch counts set to 0 just before and read
+    just after: (result, wall seconds, counts)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, ops.launch_counts()
+
+
+def check_fig9_launches(metric: str, counts: dict) -> None:
+    """The kernels each arm must (and must not) have launched."""
+    if not ops.supports_kernel(metric):  # plain path by capability
+        assert all(v == 0 for c in counts.values() for v in c.values()), counts
+        return
+    for arm in ("mrsim", "cluster"):
+        assert counts[arm]["pairdist"] > 0 and counts[arm]["pairdist_filtered"] == 0, (arm, counts)
+    for arm in ("spjoin", "kpm"):
+        assert counts[arm]["map_assign"] > 0 and counts[arm]["pairdist_filtered"] > 0, (arm, counts)
+
+
+def fig9_dataset(name: str, x: torch.Tensor, metric: str) -> tuple[float, dict, dict]:
+    """The four arms of Fig. 9 over one dataset at δ for ~10 neighbours per
+    row; pairs byte-identical across the arms and checked against brute
+    force (in full at the cut pubmed size, 256 sampled rows otherwise).
+    Returns (δ, (result, wall seconds) by arm, launch counts by arm)."""
+    n = x.shape[0]
+    delta = pick_delta(x, metric, 10.0)
+    cfg = dict(k=1024, p=16, n_dims=8)
+    arms = {
+        "spjoin": lambda: spjoin.join(x, spjoin.JoinConfig(
+            delta=delta, metric=metric, sampler="generative", partitioner="learning", **cfg)),
+        "kpm": lambda: spjoin.join(x, baselines.kpm_config(delta, metric, **cfg)),
+        "mrsim": lambda: baselines.ball_join(x, delta, metric, n_pivots=16),
+        "cluster": lambda: baselines.ball_join(x, delta, metric, n_pivots=32),
+    }
+    results, counts = {}, {}
+    for arm, fn in arms.items():
+        res, wall, counts[arm] = fig9_arm(fn)
+        results[arm] = res, wall
+        vs = res.verify_stats
+        log(f"[fig9 {name} {arm}] N={n} m={x.shape[1]} {metric} delta={delta:.6f} wall {wall:.3f}s "
+            f"(sample {res.sample_time_s:.3f} map {res.map_time_s:.3f} verify {res.verify_time_s:.3f}); "
+            f"verifications {res.n_verifications} tiles {vs.n_tiles} pairs {res.n_pairs} "
+            f"prune {vs.prune} prune_rate {vs.prune_rate:.4f}; launch counts {json.dumps(counts[arm])}")
+    base = results["spjoin"][0].pairs
+    same = {arm: r.pairs.tobytes() == base.tobytes() for arm, (r, _) in results.items()}
+    log(f"[fig9 {name}] pairs byte-identical across the arms: {same}")
+    assert all(same.values()), same
+    assert base.shape[0] > 0
+    if ops.supports_kernel(metric):
+        verdict = spot_check(x, base, delta, torch.randperm(n, device="cuda")[:256], metric)
+    else:
+        truth = spjoin.brute_force_pairs(x, delta, metric, device="cuda", chunk=64)
+        assert base.tobytes() == truth.tobytes(), "pairs differ from brute force"
+        verdict = f"byte-identical to brute force ({len(truth)} pairs)"
+    log(f"[fig9 {name}] brute force: {verdict}")
+    check_fig9_launches(metric, counts)
+    return delta, results, counts
+
+
+def check_dedup(x: torch.Tensor, delta: float, sp_pairs: np.ndarray) -> dict:
+    """``dedup`` over the aol-like profiles at δ: its pairs equal the
+    SP-Join arm's, its keep mask the lowest index of each connected
+    component (scipy's ``connected_components`` over the same pairs)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = x.shape[0]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dedup_lib.dedup(x, delta, metric="l1")
+    t = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    p = res.pairs
+    graph = coo_matrix((np.ones(len(p)), (p[:, 0], p[:, 1])), shape=(n, n))
+    n_comp, labels = connected_components(graph, directed=False)
+    first = np.full(n_comp, n)
+    np.minimum.at(first, labels, np.arange(n))
+    keep = np.zeros(n, bool)
+    keep[first] = True
+    log(f"[dedup aol-like] N={n} delta={delta:.6f}: {res.n_components} components, "
+        f"{res.n_duplicates} duplicates, {len(p)} pairs in {t:.3f}s; pairs == SP-Join arm's "
+        f"{p.tobytes() == sp_pairs.tobytes()}, keep mask == connected_components' "
+        f"{np.array_equal(keep, res.keep_mask)} ({n_comp} components); launch counts {json.dumps(counts)}")
+    assert p.tobytes() == sp_pairs.tobytes()
+    assert n_comp == res.n_components and np.array_equal(keep, res.keep_mask)
+    assert counts["map_assign"] > 0 and counts["pairdist_filtered"] > 0, counts
+    return counts
+
+
+def check_pairdist_count(x: torch.Tensor, delta: float) -> None:
+    """``ops.pairdist_count`` (the plain pairdist kernel's mask, summed)
+    over 4,096 rows against all of ``x`` (l2), held against the plain
+    count: a row's counts may differ only by its pairs whose plain distance
+    lies within the stated l2 tolerance of δ."""
+    q = x[torch.randperm(x.shape[0], device="cuda")[:4096]]
+    got = count_one_launch("pairdist", lambda: ops.pairdist_count(q, x, delta, "l2", backend="cuda"))
+    want = ref.pairdist_count(q, x, delta, "l2")
+    d = ref.pairdist(q, x, "l2").double()
+    tol = dist_tol("l2", x.shape[1], q.double().norm(dim=1)[:, None],
+                   x.double().norm(dim=1)[None, :], d, d, d)
+    band = ((d - delta).abs() <= tol).sum(1)
+    off = (got.long() - want.long()).abs()
+    log(f"pairdist_count 4096 x {x.shape[0]} l2: {int(want.sum())} pairs, rows that differ "
+        f"{int((off > 0).sum())} (largest difference {int(off.max())}, all within the band: "
+        f"{bool((off <= band).all())})")
+    assert got.dtype == torch.int32 and bool((off <= band).all())
+
+
+def phase_fig9() -> dict:
+    """The paper's comparison on the card: SP-Join, KPM and the two ball
+    joins over the four datasets, then dedup and ``pairdist_count``.
+    Returns each dataset's launch counts by arm."""
+    log("== phase 6: the paper's comparison (Fig. 9) and dedup")
+    log(f"reduced: the string corpora keep benchmarks/common.py's ~{STRINGS_PER_TEMPLATE} strings "
+        f"per template: n_templates = N // {STRINGS_PER_TEMPLATE} ({FIG9_ROWS // STRINGS_PER_TEMPLATE} "
+        f"at N = {FIG9_ROWS}, not the generator's default 32)")
+    log(f"reduced: pubmed-like N = {FIG9_PUBMED_ROWS} (not {FIG9_ROWS}): jaccard_minhash has no "
+        f"kernel and takes the plain path, whose arms each verify ~N^2 pairs of 64 signature entries")
+    t0 = time.perf_counter()
+    data = fig9_datasets(FIG9_ROWS, FIG9_PUBMED_ROWS)
+    log(f"datasets built in {time.perf_counter() - t0:.2f}s")
+    table, launches, deltas = [], {}, {}
+    for name, x, metric in data:
+        deltas[name], results, launches[name] = fig9_dataset(name, x, metric)
+        for arm, (res, wall) in results.items():
+            table.append([name, arm, x.shape[0], round(deltas[name], 6), round(wall, 3),
+                          round(res.sample_time_s, 3), round(res.map_time_s, 3),
+                          round(res.verify_time_s, 3), res.n_verifications,
+                          res.verify_stats.n_tiles, res.n_pairs])
+        if name == "aol-like":
+            launches["dedup"] = check_dedup(x, deltas[name], results["spjoin"][0].pairs)
+        if name == "sift-like":
+            check_pairdist_count(x, deltas[name])
+        del results
+    log("fig9 table [dataset, arm, N, delta, wall s, sample s, map s, verify s, "
+        "verifications, tiles, pairs]:")
+    for row in table:
+        log("  " + json.dumps(row))
+    log(f"fig9 launches {json.dumps(launches)}")
+    return launches
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -1700,6 +1907,8 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] distributed done")
     none_counts = phase_exactness()
     log(f"[{elapsed():.1f}s] exactness done")
+    phase_fig9()
+    log(f"[{elapsed():.1f}s] comparison and dedup done")
     launches = {
         "pairdist": none_counts["pairdist"],
         "pairdist_filtered": mask_counts["pairdist_filtered"],

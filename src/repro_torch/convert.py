@@ -60,6 +60,17 @@ def node_stats(
     )
 
 
+def generative_model(ref_model, device: torch.device | str = "cuda") -> sampling.GenerativeModel:
+    """A ``GenerativeModel`` from the reference's (its families and its
+    packed params, confidences and counts as arrays)."""
+    return sampling.GenerativeModel(
+        families=tuple(ref_model.families),
+        packed_params=_t(ref_model.packed_params, device),
+        confidence=_t(ref_model.confidence, device),
+        counts=_t(ref_model.counts, device),
+    )
+
+
 def join_plan(
     anchors, metric: str, kernel_lo, kernel_hi, whole_lo, whole_hi, delta: float, p: int,
     device: torch.device | str = "cuda",

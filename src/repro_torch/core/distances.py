@@ -98,3 +98,54 @@ def get_metric(name: str) -> Metric:
 def pairwise(x: Tensor, y: Tensor, metric: str = "l1") -> Tensor:
     """All-pairs distance matrix (plain implementation)."""
     return get_metric(metric).pairwise(x, y)
+
+
+def brute_force_join(x, *args, **kwargs) -> Tensor:
+    """Oracle join — ground truth for tests and benchmarks (quadratic),
+    with the reference's two call forms, overloaded on whether the second
+    argument is a set:
+
+      brute_force_join(x, delta[, metric])
+          self-join: bool (n, n) tensor, True where D(o_i, o_j) ≤ δ, i < j.
+      brute_force_join(r, s, delta[, metric])
+          cross R×S join: bool (n_r, n_s) tensor, True where
+          D(r_i, s_j) ≤ δ — no triangular de-dup.
+
+    ``s``, ``delta`` and ``metric`` may also be passed by keyword; the
+    reference's ``TypeError``s are raised for the same misuses. The plain
+    distance runs on ``x``'s device (a numpy array is a CPU tensor).
+    """
+    y = kwargs.pop("s", None)
+    delta = kwargs.pop("delta", None)
+    metric = kwargs.pop("metric", None)
+    if kwargs:
+        raise TypeError(f"unexpected keyword arguments {sorted(kwargs)}")
+    pos = list(args)
+    # Cross form iff the second positional is a set — always (n, m); scalars
+    # (and anything else) route to delta, so a stray 0-d array can't misroute.
+    if pos and getattr(pos[0], "ndim", 0) == 2:
+        if y is not None:
+            raise TypeError("brute_force_join got multiple values for s")
+        y = pos.pop(0)
+    if pos:
+        if delta is not None:
+            raise TypeError("brute_force_join got multiple values for delta")
+        delta = pos.pop(0)
+    if pos:
+        if metric is not None:
+            raise TypeError("brute_force_join got multiple values for metric")
+        metric = pos.pop(0)
+    if pos:
+        raise TypeError("too many positional arguments")
+    if delta is None:
+        raise TypeError("brute_force_join requires a delta threshold")
+    metric = metric or "l1"
+    x = torch.as_tensor(x)
+    if y is None:
+        n = x.shape[0]
+        upper = torch.ones((n, n), dtype=torch.bool, device=x.device).triu_(1)
+        return (pairwise(x, x, metric) <= float(delta)) & upper
+    y = torch.as_tensor(y).to(x.device)
+    if x.shape[0] == 0 or y.shape[0] == 0:
+        return torch.zeros((x.shape[0], y.shape[0]), dtype=torch.bool, device=x.device)
+    return pairwise(x, y, metric) <= float(delta)

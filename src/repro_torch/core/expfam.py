@@ -17,10 +17,11 @@ Plain PyTorch on the tensors' device; ``torch.special`` stands in for
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
-from torch.special import digamma, erf, erfinv, gammainc, polygamma
+from torch.special import digamma, erf, erfinv, gammainc, gammaln, polygamma
 
 Tensor = torch.Tensor
 
@@ -53,6 +54,11 @@ def suff_stats(x: Tensor, mask: Tensor | None = None) -> SuffStats:
 
     safe = torch.clamp(x.abs(), min=1e-20)  # log of |x| as a stand-in off-support
     return SuffStats(n=n, sum_x=_sum(x), sum_x2=_sum(x * x), sum_logx=_sum(torch.log(safe)))
+
+
+def merge_stats(stats: SuffStats) -> SuffStats:
+    """Combine per-shard stats stacked on a leading axis into global stats."""
+    return SuffStats(*(s.sum(0) for s in stats))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +166,25 @@ def sample(p: FamilyParams, gen: torch.Generator, shape: tuple[int, ...]) -> Ten
     return out.to(p.a.device)
 
 
+def log_prob(p: FamilyParams, x: Tensor) -> Tensor:
+    """Per-dimension log-density summed over dims, for diagnostics; −inf
+    off the family's support."""
+    if p.family == "normal":
+        lp = -0.5 * ((x - p.a) ** 2 / p.b + torch.log(2.0 * math.pi * p.b))
+    elif p.family == "exponential":
+        lp = torch.where(x >= 0, torch.log(p.a) - p.a * x, -math.inf)
+    elif p.family == "gamma":
+        lp = torch.where(
+            x > 0,
+            p.a * torch.log(p.b) - gammaln(p.a)
+            + (p.a - 1) * torch.log(torch.clamp(x, min=1e-30)) - p.b * x,
+            -math.inf,
+        )
+    else:
+        raise ValueError(p.family)
+    return lp.sum(-1)
+
+
 _FAMILY_ID = {name: i for i, name in enumerate(FAMILIES)}
 
 
@@ -176,3 +201,9 @@ def unpack(v: Tensor, family: str | None = None) -> FamilyParams:
     m = (v.shape[-1] - 1) // 2
     fam = family if family is not None else FAMILIES[int(v[0])]
     return FamilyParams(fam, v[1 : 1 + m], v[1 + m :])
+
+
+def fit_jit(family: str, x: Tensor) -> Tensor:
+    """Data → packed params in one call (the reference's name; nothing is
+    compiled here: it is ``pack(fit(family, suff_stats(x)))``)."""
+    return pack(fit(family, suff_stats(x)))

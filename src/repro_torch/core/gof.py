@@ -90,3 +90,10 @@ def fit_best_family(
             best = (params, res)
     assert best is not None
     return best
+
+
+def global_confidence(k_stars: Tensor, dofs: Tensor) -> Tensor:
+    """Theorem 2: the global statistic Σ_i K_i* is χ² with Σ_i df_i degrees
+    of freedom (a sum of independent χ²); returns its confidence c̄⁰
+    (Eq. 13), which is at least min_i c_i⁰."""
+    return chi2_sf(torch.as_tensor(k_stars).sum(), torch.as_tensor(dofs).sum())

@@ -84,3 +84,14 @@ def select_anchors(
     if n_fft < n:
         idx += torch.randperm(k, generator=gen)[: n - n_fft].tolist()
     return SpaceMap(pivots[torch.as_tensor(idx, device=pivots.device)], metric)
+
+
+def map_shards(space_map: SpaceMap, shards: list[Tensor]) -> list[Tensor]:
+    """Map a list of shards (reference executor convenience)."""
+    return [space_map(s) for s in shards]
+
+
+def as_numpy(space_map: SpaceMap) -> SpaceMap:
+    """A host copy of the map: its anchors as a CPU tensor (``.numpy()``
+    gives the array without a copy), so it maps CPU rows."""
+    return SpaceMap(space_map.anchors.detach().cpu(), space_map.metric)

@@ -7,7 +7,10 @@
                              the per-node (family, η, c⁰, N)
 
 plus the supporting theory (``allocate_samples`` — Eq. 11,
-``required_sample_size`` — Theorem 3 inverted, ``sampling_error`` — Def. 4).
+``required_sample_size`` — Theorem 3 inverted, ``sampling_error`` — Def. 4,
+``error_bound_probability`` — Theorem 3 forward). ``gibbs_chain_numpy`` is
+the paper's exact Alg. 4 loop on the host, kept as the reference for the
+chain's distribution.
 
 Randomness comes from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random`` streams, so the samplers are held to the reference at the
@@ -15,6 +18,7 @@ level of distributions, not draws.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -23,6 +27,11 @@ import torch
 from repro_torch.core import expfam
 
 Tensor = torch.Tensor
+
+
+def error_bound_probability(k: int, epsilon: float, m: int) -> float:
+    """P[D_k ≥ ε] < 2m·exp(−2kε²) (Theorem 3)."""
+    return float(2.0 * m * np.exp(-2.0 * k * epsilon**2))
 
 
 def required_sample_size(epsilon: float, fail_prob: float, m: int) -> int:
@@ -162,6 +171,39 @@ def distribution_aware_sample(
     return torch.cat(out, dim=0)
 
 
+@dataclasses.dataclass(frozen=True)
+class GenerativeModel:
+    """The broadcast global model: per-node packed params + confidence +
+    size (tensors). Conditionals (Eqs. 17–19):
+
+      p(E=i | C=c) ∝ N_i · (c_i⁰)^{−c}
+      p(X | E=i)   = f_i(X)           (the node's fitted product density)
+      p(C=1 | E=i) = c_i⁰
+    """
+
+    families: tuple[str, ...]  # per-node family name
+    packed_params: Tensor  # (M, 2m+1) — expfam.pack per node
+    confidence: Tensor  # (M,)
+    counts: Tensor  # (M,)
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.families)
+
+    def node_stats(self) -> list[NodeStats]:
+        """The per-node statistics the model packs, the input of
+        :func:`gibbs_chain`."""
+        return [
+            NodeStats(
+                family=fam,
+                params=expfam.unpack(self.packed_params[i], fam),
+                confidence=float(self.confidence[i]),
+                count=int(self.counts[i]),
+            )
+            for i, fam in enumerate(self.families)
+        ]
+
+
 def gibbs_chain(
     gen: torch.Generator,
     node_stats: Sequence[NodeStats],
@@ -271,3 +313,29 @@ def generative_sample(
     """Alg. 3: the broadcast model (family, η, c⁰, N per node) and the Gibbs
     chain over it."""
     return gibbs_chain(gen, node_stats, k)
+
+
+def gibbs_chain_numpy(
+    rng: np.random.Generator,
+    node_stats: Sequence[NodeStats],
+    k: int,
+) -> np.ndarray:
+    """The exact Alg. 4 loop (dynamic length, on the host) — the reference
+    the fixed-length chain is held against at the level of distributions.
+    Each x is drawn by ``expfam.sample`` with a CPU ``torch.Generator``
+    seeded from ``rng``."""
+    counts = np.array([s.count for s in node_stats], np.float64)
+    conf = np.clip(np.array([s.confidence for s in node_stats], np.float64), 1e-3, 1.0)
+    out: list[np.ndarray] = []
+    c_prev = 1
+    guard = 0
+    while len(out) < k and guard < 1000 * k:
+        guard += 1
+        w = counts / np.power(conf, c_prev)
+        e = rng.choice(len(counts), p=w / w.sum())
+        gen = torch.Generator().manual_seed(int(rng.integers(0, 2**31 - 1)))
+        x = expfam.sample(node_stats[e].params, gen, ()).cpu().numpy()
+        c_prev = int(rng.uniform() < conf[e])
+        if c_prev == 1:
+            out.append(x)
+    return np.stack(out)

@@ -138,6 +138,26 @@ def apply_dedup(
     return hits & ref.emit_mask(vids, wids, wcells, cell_id, cross=cross)
 
 
+def pair_validity(vids: Tensor, wids: Tensor) -> Tensor:
+    """(a, b) bool — True where both sides are real rows (padding id = -1)."""
+    return (vids[:, None] >= 0) & (wids[None, :] >= 0)
+
+
+def candidate_mask(
+    pv: Tensor,
+    pw: Tensor,
+    vids: Tensor,
+    wids: Tensor,
+    delta: float,
+    delta_bound: float | None = None,
+) -> Tensor:
+    """(a, b) bool — pivot-filter SURVIVORS among valid pairs: the L∞ lower
+    bound over mapped coordinates within the (fp-slackened) threshold, and
+    neither side padding. Hits are a subset of this mask when the caller
+    passes the same ``delta_bound`` here and to the verify call."""
+    return ref.bound_mask(pv, pw, delta, delta_bound) & pair_validity(vids, wids)
+
+
 def plain_hits(x: Tensor, y: Tensor, delta: float, metric: str) -> Tensor:
     """``D <= delta`` by the plain path, for one tile (a, m) x (b, m) or a
     batch of tiles (B, a, m) x (B, b, m)."""
@@ -179,6 +199,35 @@ def tile_hits(
     if backend == "cuda":
         return kops.pairdist_mask(xv, xw, delta, metric, backend="cuda")
     return plain_hits(xv, xw, delta, metric)
+
+
+def verify_tile(
+    xv: Tensor,
+    xw: Tensor,
+    vids: Tensor,
+    wids: Tensor,
+    wcells: Tensor | None,
+    cell_id: int,
+    *,
+    delta: float,
+    metric: str,
+    backend: str,
+    cross: bool = False,
+    pv: Tensor | None = None,
+    pw: Tensor | None = None,
+    prune: str = "none",
+    premask: Tensor | None = None,
+    delta_bound: float | None = None,
+) -> Tensor:
+    """One tile's verify as an (a, b) emission mask (reference
+    ``verify_tile``): the raw hits of :func:`tile_hits` (``backend`` and
+    ``prune`` resolved, "torch" | "cuda" for the reference's "numpy" |
+    "pallas") after validity and the min-cell rule (:func:`apply_dedup`)."""
+    hits = tile_hits(
+        xv, xw, delta=delta, metric=metric, backend=backend, pv=pv, pw=pw,
+        prune=prune, premask=premask, delta_bound=delta_bound,
+    )
+    return apply_dedup(hits, vids, wids, wcells, cell_id, cross=cross)
 
 
 def verify_tile_compact(
@@ -699,3 +748,44 @@ def verify_pairs(
         config=config, return_pairs=return_pairs, data_w=data_w,
         coords=coords, coords_w=coords_w,
     )
+
+
+def reference_verify(
+    data,
+    cells,
+    member,
+    delta: float,
+    metric: str,
+    *,
+    return_pairs: bool = True,
+) -> tuple[np.ndarray, int]:
+    """The seed's dense per-cell reduce loop (reference
+    ``reference_verify``), kept as the oracle: one plain pairwise matrix
+    per cell on ``data``'s device, no tiling, no filter. Returns (pairs
+    (n_pairs, 2) int64 sorted unique, n_verifications)."""
+    allx = data if isinstance(data, Tensor) else torch.as_tensor(np.asarray(data))
+    cells_np = _host(cells)
+    member_np = _host(member)
+    metric_fn = distances.get_metric(metric)
+    n_verif = 0
+    chunks: list[np.ndarray] = []
+    for h in range(member_np.shape[1]):
+        v_idx = np.flatnonzero(cells_np == h)
+        w_idx = np.flatnonzero(member_np[:, h])
+        if v_idx.size == 0 or w_idx.size == 0:
+            continue
+        n_verif += int(v_idx.size) * int(w_idx.size)
+        rows_v = allx[torch.as_tensor(v_idx, device=allx.device)]
+        rows_w = allx[torch.as_tensor(w_idx, device=allx.device)]
+        hit_v, hit_w = np.nonzero(_host(metric_fn.pairwise(rows_v, rows_w) <= delta))
+        gi = v_idx[hit_v]
+        gj = w_idx[hit_w]
+        cj = cells_np[gj]
+        keep = ((cj == h) & (gi < gj)) | (cj > h)
+        if return_pairs and keep.any():
+            chunks.append(np.stack([gi[keep], gj[keep]], axis=1))
+    if chunks:
+        pairs = np.unique(np.sort(np.concatenate(chunks), axis=1), axis=0)
+    else:
+        pairs = np.zeros((0, 2), np.int64)
+    return pairs.astype(np.int64), n_verif

@@ -7,8 +7,9 @@ claim (skew hurts random sampling, Gen/Dist fix it, ...) is reproducible
 and parameterized.
 
 The join generators of ``repro.data.synthetic``, copied (the port imports
-nothing of the JAX package): the same seed gives the same arrays in both
-packages.
+nothing of the JAX package): the same seed gives the same arrays and
+strings in both packages (the same ``np.random.default_rng`` calls in the
+same order). ``token_example`` belongs to the LM stack and is not ported.
 """
 from __future__ import annotations
 
@@ -82,3 +83,44 @@ def rs_mixture(
     s_scales = scale * rng.uniform(0.5, 2.0, size=n_clusters)
     s = draw(n_s, weights[::-1], s_centers, s_scales)
     return r, s
+
+
+def heavy_tailed(n: int, m: int, alpha: float = 2.5, seed: int = 0) -> np.ndarray:
+    """Pareto-tailed magnitudes (SIFT-like heavy local density variation)."""
+    rng = np.random.default_rng(seed)
+    r = rng.pareto(alpha, size=(n, 1)).astype(np.float32) + 1.0
+    d = rng.normal(size=(n, m)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-9
+    return r * d
+
+
+def exponential_nodes(
+    n_per_node: int, m: int, n_nodes: int, seed: int = 0
+) -> list[np.ndarray]:
+    """Per-node exponential data with node-specific rates — the regime where
+    the paper's exponential-family fit shines (high GoF confidence)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_nodes):
+        lam = rng.uniform(0.5, 3.0, size=(m,))
+        out.append(rng.exponential(1.0 / lam, size=(n_per_node, m)).astype(np.float32))
+    return out
+
+
+def strings(n: int, vocab: str = "abcdefgh", length: tuple[int, int] = (8, 24),
+            n_templates: int = 32, mutate: float = 0.15, seed: int = 0) -> list[str]:
+    """Near-duplicate string corpus: templates + character mutations (the
+    AOL/PubMed analogue for §6.2 string-metric support)."""
+    rng = np.random.default_rng(seed)
+    templates = [
+        "".join(rng.choice(list(vocab), size=rng.integers(*length)))
+        for _ in range(n_templates)
+    ]
+    out = []
+    for _ in range(n):
+        t = list(templates[rng.integers(n_templates)])
+        for j in range(len(t)):
+            if rng.uniform() < mutate:
+                t[j] = vocab[rng.integers(len(vocab))]
+        out.append("".join(t))
+    return out

@@ -121,6 +121,15 @@ def pairdist_mask(
     return _pairdist.pairdist_cuda(*_prep(x, y, metric), metric, float(delta)).bool()
 
 
+def pairdist_count(
+    x: Tensor, y: Tensor, delta: float, metric: str = "l2", *, backend: str = "auto"
+) -> Tensor:
+    """Per-row join fan-out counts (a,) int32: the row sums of
+    :func:`pairdist_mask` (on "cuda" the plain pairdist kernel's int8
+    mask)."""
+    return pairdist_mask(x, y, delta, metric, backend=backend).sum(-1).to(torch.int32)
+
+
 def pairdist_mask_filtered(
     x: Tensor,
     y: Tensor,

@@ -84,6 +84,11 @@ def pairdist_mask(x: Tensor, y: Tensor, delta: float, metric: str = "l2") -> Ten
     return pairdist(x, y, metric) <= delta
 
 
+def pairdist_count(x: Tensor, y: Tensor, delta: float, metric: str = "l2") -> Tensor:
+    """Per-row join fan-out: (a,) int32 — |{j : D(x_i, y_j) <= delta}|."""
+    return pairdist_mask(x, y, delta, metric).sum(-1).to(torch.int32)
+
+
 _EPS32 = float(torch.finfo(torch.float32).eps)
 
 

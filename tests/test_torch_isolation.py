@@ -37,9 +37,9 @@ def test_package_imports_without_jax():
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "from repro_torch import convert\n"
-        "from repro_torch.core import distributed, index, spjoin, verify\n"
+        "from repro_torch.core import baselines, distributed, index, spjoin, verify\n"
         "from repro_torch.kernels import compact, histogram, ops\n"
-        "from repro_torch.data import pipeline, synthetic\n"
+        "from repro_torch.data import dedup, pipeline, synthetic, vectorize\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

@@ -13,8 +13,8 @@ import torch
 
 from repro.core import spjoin as jspjoin
 from repro_torch import convert
-from repro_torch.core import partition, spjoin
-from repro_torch.data import synthetic
+from repro_torch.core import baselines, partition, spjoin
+from repro_torch.data import dedup, synthetic
 
 DELTA = {"l1": 3.0, "l2": 1.2, "linf": 0.6}
 
@@ -111,8 +111,11 @@ def test_join_needs_cuda_unless_asked_for_cpu(monkeypatch):
         lambda: convert.space_map(np.zeros((2, 2)), "l1"),
         lambda: convert.partition_plan(*[np.zeros((2, 2))] * 4, 0.1),
         lambda: convert.node_stats("gaussian", np.zeros(2), np.ones(2), 0.5, 4),
+        lambda: baselines.ball_join(np.zeros((4, 2), np.float32), 1.0),
+        lambda: dedup.dedup(np.zeros((4, 2), np.float32), 1.0),
     ),
-    ids=("brute_force_pairs", "build_partition", "pivots", "space_map", "partition_plan", "node_stats"),
+    ids=("brute_force_pairs", "build_partition", "pivots", "space_map", "partition_plan", "node_stats",
+         "ball_join", "dedup"),
 )
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Like ``join``, the other public entry points run on the card unless

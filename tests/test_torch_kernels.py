@@ -440,3 +440,22 @@ def test_histogram_launch_plan_fits_and_covers(t):
     # The stats stage's shape: registers, 32 quads, 8 CTAs per SM.
     assert histogram.launch_plan(1_000_000, 128, 8, n_sm) == histogram.HistPlan(
         mode=histogram.REGISTERS, tmax=8, qb=32, copies=1, grid_x=1, grid_y=1056, smem=32_768)
+
+
+@pytest.mark.parametrize("metric", ("l1", "l2", "linf", "cosine"))
+def test_pairdist_count_matches_reference(metric):
+    """Per-row fan-out: the port's ``ops.pairdist_count`` (plain on the
+    CPU) and ``ref.pairdist_count`` against the reference's ops (Pallas in
+    interpret mode) and ref; exact except rows with a pair in the δ band."""
+    from repro.kernels import ref as jref
+
+    x, y = _data(37, 50, 20, seed=11)
+    delta = float(np.quantile(_d64(x, y, metric), 0.2))
+    got = ops.pairdist_count(torch.as_tensor(x), torch.as_tensor(y), delta, metric)
+    plain = ref.pairdist_count(torch.as_tensor(x), torch.as_tensor(y), delta, metric)
+    want = np.asarray(ref_ops.pairdist_count(x, y, delta, metric, backend="pallas"))
+    assert got.dtype == plain.dtype == torch.int32 and got.shape == (37,)
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(jref.pairdist_count(x, y, delta, metric)))
+    band = (np.abs(_d64(x, y, metric) - delta) <= 1e-5 * max(1.0, abs(delta))).sum(1)
+    assert (np.abs(got.numpy() - want) <= band).all() and got.sum() > 0

@@ -149,3 +149,18 @@ def test_select_anchors_residual_fill_with_few_distinct_pivots():
     assert torch.unique(smap.anchors[:3], dim=0).shape[0] == 3  # the 3 distinct rows first
     assert jmap.select_anchors(jax.random.PRNGKey(0), jnp.asarray(piv.numpy()), 5, "l1").anchors.shape == (5, 4)
     assert distances.pairwise(smap.anchors, smap.anchors, "l1").shape == (5, 5)
+
+
+def test_map_shards_and_as_numpy_match_reference():
+    data, _, _, smap, _ = _reference_plan("l1")
+    tmap = convert.space_map(np.asarray(smap.anchors), "l1", device="cpu")
+    shards = np.array_split(data, 3)
+    got = mapping.map_shards(tmap, [torch.as_tensor(s) for s in shards])
+    want = jmap.map_shards(smap, [jnp.asarray(s) for s in shards])
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    host = mapping.as_numpy(tmap)
+    assert host.metric == "l1" and host.anchors.device.type == "cpu"
+    np.testing.assert_array_equal(host.anchors.numpy(), np.asarray(jmap.as_numpy(smap).anchors))
+    np.testing.assert_array_equal(host(torch.as_tensor(data[:5])).numpy(), got[0][:5].numpy())

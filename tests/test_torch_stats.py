@@ -165,3 +165,111 @@ def test_random_sample_and_sample_size():
     assert piv.shape == (20, 2) and torch.unique(piv, dim=0).shape[0] == 20
     for eps, fail, m in ((0.05, 0.01, 8), (0.2, 100.0, 4)):
         assert sampling.required_sample_size(eps, fail, m) == jsamp.required_sample_size(eps, fail, m)
+
+
+@pytest.mark.parametrize("k, eps, m", ((1, 0.05, 8), (500, 0.05, 8), (3000, 0.02, 128), (10, 0.5, 1)))
+def test_error_bound_probability_matches_reference(k, eps, m):
+    got = sampling.error_bound_probability(k, eps, m)
+    assert isinstance(got, float) and got == jsamp.error_bound_probability(k, eps, m)
+    dp = 0.05
+    k_req = sampling.required_sample_size(eps, dp, m)
+    assert sampling.error_bound_probability(k_req, eps, m) <= dp * (1 + 1e-9)
+
+
+@pytest.mark.parametrize("kind", ("normal", "exponential", "gamma"))
+def test_global_confidence_and_merge_stats_match_reference(kind):
+    shards = [_shard(kind, seed=s, n=300 + 50 * s) for s in range(3)]
+    ks, dofs, conf = [], [], []
+    for s in shards:
+        _, res = jgof.fit_best_family(jnp.asarray(s), t=8)
+        ks.append(float(res.statistic))
+        dofs.append(float(res.dof))
+        conf.append(float(res.confidence))
+    got = float(gof.global_confidence(torch.tensor(ks), torch.tensor(dofs)))
+    want = float(jgof.global_confidence(jnp.asarray(ks), jnp.asarray(dofs)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    # Theorem 2: the global confidence is at least the smallest node's.
+    assert got >= min(conf) - 1e-6
+    jst = [jexp.suff_stats(jnp.asarray(s)) for s in shards]
+    tst = [expfam.suff_stats(torch.as_tensor(s)) for s in shards]
+    jm = jexp.merge_stats(jexp.SuffStats(*(jnp.stack(f) for f in zip(*jst))))
+    tm = expfam.merge_stats(expfam.SuffStats(*(torch.stack(f) for f in zip(*tst))))
+    for t, j in zip(tm, jm):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5)
+    whole = expfam.suff_stats(torch.as_tensor(np.concatenate(shards)))
+    for t, w in zip(tm, whole):
+        np.testing.assert_allclose(t.numpy(), w.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("family", ("normal", "exponential", "gamma"))
+def test_log_prob_and_fit_jit_match_reference(family):
+    x = _shard("gamma", seed=7)
+    jp = jexp.fit(family, jexp.suff_stats(jnp.asarray(x)))
+    tp = expfam.FamilyParams(family, torch.tensor(np.asarray(jp.a)), torch.tensor(np.asarray(jp.b)))
+    pts = np.concatenate([x[:20], -x[:3]])  # the last rows lie off the positive support
+    got = expfam.log_prob(tp, torch.as_tensor(pts)).numpy()
+    want = np.asarray(jexp.log_prob(jp, jnp.asarray(pts)))
+    assert got.shape == (23,)
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5)
+    packed = expfam.fit_jit(family, torch.as_tensor(x))
+    assert packed.shape == (2 * x.shape[1] + 1,)
+    np.testing.assert_allclose(packed.numpy(), np.asarray(jexp.fit_jit(family, jnp.asarray(x))), rtol=1e-4)
+
+
+def _ref_stats(kinds, m=3, n=2000):
+    out = []
+    for i, kind in enumerate(kinds):
+        s = _shard(kind, seed=20 + i, n=n, m=m)
+        par, res = jgof.fit_best_family(jnp.asarray(s))
+        out.append(jsamp.NodeStats(par.family, par, float(res.confidence), n + 100 * i))
+    return out
+
+
+def _ks_per_dim(a, b):
+    from scipy.stats import ks_2samp
+
+    return [float(ks_2samp(a[:, d], b[:, d]).pvalue) for d in range(a.shape[1])]
+
+
+def test_generative_model_draws_follow_the_reference_chain():
+    """The reference's broadcast model, carried over with
+    ``convert.generative_model``: the port's chain over it and the
+    reference's fixed-length chain draw the same law (fixed-seed two-sample
+    KS per dimension)."""
+    import jax
+
+    ref_stats = _ref_stats(("normal", "gamma", "exponential"))
+    ref_model = jsamp.GenerativeModel(
+        families=tuple(s.family for s in ref_stats),
+        packed_params=jnp.stack([jexp.pack(s.params) for s in ref_stats]),
+        confidence=jnp.asarray([s.confidence for s in ref_stats], jnp.float32),
+        counts=jnp.asarray([s.count for s in ref_stats], jnp.float32),
+    )
+    model = convert.generative_model(ref_model, device="cpu")
+    assert model.n_nodes == 3 and model.families == ref_model.families
+    assert model.packed_params.shape == (3, 7) and model.counts.dtype == torch.float32
+    stats = model.node_stats()
+    assert [s.count for s in stats] == [s.count for s in ref_stats]
+    np.testing.assert_allclose([s.confidence for s in stats], [s.confidence for s in ref_stats], rtol=1e-6)
+    k = 2000
+    want, _ = jsamp.gibbs_chain(jax.random.PRNGKey(0), ref_model, k)
+    got, acc = sampling.gibbs_chain(torch.Generator().manual_seed(0), stats, k)
+    assert got.shape == (k, 3) and acc > 0.0
+    assert min(_ks_per_dim(got.numpy(), np.asarray(want))) > 1e-3
+
+
+def test_gibbs_chain_numpy_follows_the_reference_loop():
+    """The paper's exact loop, port against reference: the same law (KS per
+    dimension) from the same ``np.random.Generator`` seed."""
+    ref_stats = _ref_stats(("normal", "exponential"), n=1500)
+    stats = [
+        convert.node_stats(s.family, s.params.a, s.params.b, s.confidence, s.count, device="cpu")
+        for s in ref_stats
+    ]
+    k = 600
+    got = sampling.gibbs_chain_numpy(np.random.default_rng(0), stats, k)
+    want = jsamp.gibbs_chain_numpy(np.random.default_rng(0), ref_stats, k)
+    assert got.shape == want.shape == (k, 3) and got.dtype == np.float32
+    assert min(_ks_per_dim(got, want)) > 1e-3

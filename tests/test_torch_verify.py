@@ -316,3 +316,50 @@ def test_verify_resident_matches_reference():
         coords=torch.as_tensor(xr), coords_w=torch.as_tensor(xs),
     )
     _assert_same((got, gs), (want, ws))
+
+
+@pytest.mark.parametrize("metric", ("l1", "l2", "angular"))
+def test_reference_verify_matches_reference(metric):
+    """The seed's dense per-cell loop, port against reference: the same
+    pairs and verification count, and the engine's pairs."""
+    r, _, cells, member, xr, _, delta = _setup(metric, False, seed=1)
+    got, n_got = verify.reference_verify(torch.as_tensor(r), cells, member, delta, metric)
+    want, n_want = jver.reference_verify(r, cells, member, delta, metric)
+    assert got.dtype == np.int64 and got.tobytes() == want.tobytes() and len(got) > 0
+    assert n_got == n_want
+    engine, st = verify.verify_pairs(torch.as_tensor(r), cells, member, delta, metric)
+    assert engine.tobytes() == got.tobytes() and st.n_verifications == n_got
+    empty, n_empty = verify.reference_verify(r, cells, member, delta, metric, return_pairs=False)
+    assert empty.shape == (0, 2) and n_empty == n_got
+
+
+@pytest.mark.parametrize("cross", (False, True))
+@pytest.mark.parametrize("prune", ("pivot", "none"))
+def test_verify_tile_wrappers_match_reference(cross, prune):
+    """``pair_validity``, ``candidate_mask`` and ``verify_tile`` with the
+    reference's signatures ("torch" for the reference's "numpy")."""
+    rng = np.random.default_rng(5)
+    xv = rng.normal(size=(40, 9)).astype(np.float32)
+    xw = rng.normal(size=(56, 9)).astype(np.float32)
+    pv = rng.normal(size=(40, 3)).astype(np.float32)
+    pw = rng.normal(size=(56, 3)).astype(np.float32)
+    vids = np.r_[rng.permutation(100)[:36], [-1] * 4].astype(np.int64)
+    wids = np.r_[rng.permutation(100)[:50], [-1] * 6].astype(np.int64)
+    wcells = rng.integers(0, 4, size=56).astype(np.int64)
+    delta = _gap_delta(xv, xw, "l1", 0.3)
+    t = torch.as_tensor
+    np.testing.assert_array_equal(
+        verify.pair_validity(t(vids), t(wids)).numpy(), np.asarray(jver.pair_validity(vids, wids))
+    )
+    cand = verify.candidate_mask(t(pv), t(pw), t(vids), t(wids), delta, 2.5).numpy()
+    np.testing.assert_array_equal(cand, np.asarray(jver.candidate_mask(pv, pw, vids, wids, delta, 2.5)))
+    assert 0 < cand.sum() < cand.size
+    kw = dict(delta=delta, metric="l1", cross=cross, prune=prune)
+    coords = dict(pv=pv, pw=pw, delta_bound=4.0) if prune == "pivot" else {}
+    want = np.asarray(jver.verify_tile(xv, xw, vids, wids, wcells, 1, backend="numpy", **kw, **coords))
+    got = verify.verify_tile(
+        t(xv), t(xw), t(vids), t(wids), t(wcells), 1, backend="torch", **kw,
+        **{k: (t(v) if isinstance(v, np.ndarray) else v) for k, v in coords.items()},
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
