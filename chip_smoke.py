@@ -28,6 +28,22 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    global counting), and at the stats stage's 1,000,000 x
                    128, t = 8 (exact, torch.equal), timed through its C
                    entry point against its 0.25 ms target;
+  lm_serve       — the LM stack's serving path (no kernel of the repo; the
+                   launch counts must read 0 after it): qwen1.5-0.5b at full
+                   width and depth, weights from a seeded generator on the
+                   card, 8 requests x 128 prompt tokens prefilled by decode
+                   and 64 greedy tokens through launch.serve's functions
+                   (seconds, tok/s, parameter and KV bytes, peak GiB, a
+                   profiled window); check (a) forward's and prefill_step's
+                   logits against the decode path's at every prompt position
+                   (rtol = atol = 0.15, argmax agreement > 0.95 at bf16
+                   resolution), (b) the same model at act fp32 on the card and
+                   on the CPU (ids equal, logits within 1e-2 of the largest),
+                   (c) every id in [0, vocab); the same draw under the
+                   reference's init logged beside it; then granite-34b at full
+                   width on 4 of its 88 layers (a printed "reduced" line: MQA,
+                   GELU) with (a) and (c). Its seconds come out of the main
+                   path's share;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -90,11 +106,13 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    over 4,096 rows against the sift-like set.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
-A full run takes about 13-14 minutes on an H100 (build ~30 s).
+A full run takes about 12-14 minutes on an H100 (build ~30 s, lm_serve ~40 s).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -108,6 +126,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.core import baselines, distances, distributed, index, partition, spjoin, verify  # noqa: E402
 from repro_torch.data import dedup as dedup_lib  # noqa: E402
 from repro_torch.data import synthetic, vectorize  # noqa: E402
@@ -116,6 +135,10 @@ from repro_torch.kernels import compact as _compact  # noqa: E402
 from repro_torch.kernels import histogram as _histogram  # noqa: E402
 from repro_torch.kernels import mapassign as _mapassign  # noqa: E402
 from repro_torch.kernels import pairdist as _pairdist  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import base as lm_base  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -1300,8 +1323,10 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
     return res, counts
 
 
-def phase_main_path(report: dict, z: torch.Tensor, ptx: list) -> tuple[dict, dict, torch.Tensor, float, object]:
-    """The two main-path joins over the first N_ROWS rows of ``z``. The
+def phase_main_path(report: dict, z: torch.Tensor, ptx: list,
+                    share: float) -> tuple[dict, dict, torch.Tensor, float, object]:
+    """The two main-path joins over the first N_ROWS rows of ``z``, fitted
+    into ``share`` seconds (MAIN_SHARE_S less the lm_serve phase's). The
     probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
     launch counts of both joins, the compact join's rows, δ and its
@@ -1332,11 +1357,11 @@ def phase_main_path(report: dict, z: torch.Tensor, ptx: list) -> tuple[dict, dic
 
     log(f"probe: {probe_n} rows, mask {probes['mask'][1]:.2f}s compact {probes['compact'][1]:.2f}s; "
         f"predicted {predict('mask', N_ROWS):.1f}s + 2 x {predict('compact', N_ROWS):.1f}s at {N_ROWS} rows")
-    while n_mask > probe_n and total(n_mask, n_compact) > MAIN_SHARE_S:
+    while n_mask > probe_n and total(n_mask, n_compact) > share:
         log(f"reduced: mask join n_rows {n_mask} -> {n_mask // 2} (predicted "
-            f"{total(n_mask, n_compact):.1f}s > {MAIN_SHARE_S:.0f}s)")
+            f"{total(n_mask, n_compact):.1f}s > {share:.0f}s)")
         n_mask //= 2
-    while n_compact > probe_n and total(n_mask, n_compact) > MAIN_SHARE_S:
+    while n_compact > probe_n and total(n_mask, n_compact) > share:
         log(f"reduced: compact and distributed joins n_rows {n_compact} -> {n_compact // 2}")
         n_compact //= 2
     x = z[:N_ROWS]
@@ -1884,6 +1909,223 @@ def phase_fig9() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# lm_serve: the LM stack's serving path (dense body) at full width
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen1.5-0.5b"  # the smallest dense model of the zoo, whole on one card
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 128, 64  # requests, prompt tokens, generated tokens
+LM_MQA_ARCH, LM_MQA_LAYERS, LM_MQA_GEN = "granite-34b", 4, 16  # MQA + GELU, depth cut
+LM_BF16_TOL = 0.15  # rtol = atol of the reference's decode-vs-forward bar (tests/test_models.py)
+LM_AGREE = 0.95  # ... and its argmax agreement
+LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_GEN = 2, 8, 4  # check (b): act fp32, card against CPU
+LM_FP32_REL = 1e-2  # check (b): max |logit difference| / max |logit|; the fp32 path keeps
+#   the reference's bf16 steps (KV cache, probabilities, the o @ wo product), each a
+#   rounding of 2^-8 = 3.9e-3 that the card and the CPU may take on either side
+
+
+def lm_trace(model, prompts: torch.Tensor, n_gen: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The steps ``serve.generate`` runs (prefill by decode, then greedy
+    decode from the last prompt token at position prompt_len), keeping
+    every step's logits: (ids (B, n_gen), fp32 logits (B, T + n_gen, V))."""
+    step = ts.make_serve_step(model.cfg)
+    B, T = prompts.shape
+    state = model.init_state(B, T + n_gen)
+    logits = []
+    for t in range(T):
+        _, lg, state = step(model, prompts[:, t : t + 1], state, t)
+        logits.append(lg[:, 0].float())
+    tok, ids = prompts[:, -1:], []
+    for i in range(n_gen):
+        tok, lg, state = step(model, tok, state, T + i)
+        ids.append(tok[:, 0])
+        logits.append(lg[:, 0].float())
+    return torch.stack(ids, 1) if ids else prompts[:, :0], torch.stack(logits, 1)
+
+
+def lm_bf16_gap(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float, float]:
+    """(worst |got - want| - LM_BF16_TOL |want|, max |got - want|, argmax
+    agreement, argmax agreement at bf16 resolution). The reference's
+    assert_allclose(got, want, 0.15, 0.15) holds when the first is at most
+    0.15. At bf16 resolution a position agrees when ``want`` scores got's
+    argmax within one bf16 ulp of its own maximum: over 49,152-151,936
+    random logits the top two often lie within one ulp (2^-7 relative), and
+    which of them an argmax takes says nothing of the path."""
+    a, b = got.float(), want.float()
+    d = (a - b).abs()
+    excess = float((d - LM_BF16_TOL * b.abs()).max())
+    pick = a.argmax(-1)
+    top = b.amax(-1)
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+    tie = (b.gather(-1, pick[..., None])[..., 0] >= top - ulp).float().mean()
+    return excess, float(d.max()), float((pick == b.argmax(-1)).float().mean()), float(tie)
+
+
+def lm_check_a(model, prompts: torch.Tensor, label: str) -> bool:
+    """Check (a): forward's full logits and make_prefill_step's last-position
+    logits against the decode path's logits at each prompt position, on the
+    reference's bar: rtol = atol = 0.15 at every logit, argmax agreement
+    > 0.95 (at bf16 resolution) over the positions of both."""
+    _, dec = lm_trace(model, prompts, 0)
+    full, _ = model({"tokens": prompts})
+    last = ts.make_prefill_step(model.cfg)(model, {"tokens": prompts})
+    parts = {"forward": (full, dec), "prefill_step": (last, dec[:, -1:]),
+             "both": (torch.cat([full, last], 1), torch.cat([dec, dec[:, -1:]], 1))}
+    gaps = {}
+    for what, (got, want) in parts.items():
+        gaps[what] = excess, dmax, agree, tie = lm_bf16_gap(got, want)
+        log(f"[lm_serve] check (a) {label}: {what} vs decode over {got.shape[0]}x{got.shape[1]} "
+            f"positions: worst |d| - {LM_BF16_TOL}|decode| = {excess:.4f} (bar {LM_BF16_TOL}), max |d| "
+            f"{dmax:.4f}; argmax agreement {tie:.4f} at bf16 resolution, {agree:.4f} exact")
+    excess, _, _, tie = gaps["both"]
+    ok = excess <= LM_BF16_TOL and tie > LM_AGREE
+    log(f"[lm_serve] check (a) {label}: {'ok' if ok else 'FAILED'} (bars: {LM_BF16_TOL}, agreement > {LM_AGREE})")
+    return ok
+
+
+def lm_reference_init_gap(cfg, prompts: torch.Tensor) -> None:
+    """Not a check: the same draw with the reference's fan-in (a stacked
+    layer weight divided by √n_layers, not √d_in), to show what the port's
+    init avoids. Logs the decode-vs-forward gap and the bf16 forward's gap
+    to the fp32 forward."""
+    defs = lm_transformer.model_defs(cfg)
+    params = lm_base.init_params(torch.Generator(device="cuda").manual_seed(0), defs)
+
+    def rescale(p, d):
+        if isinstance(p, dict):
+            return {k: rescale(p[k], d[k]) for k in p}
+        return p * math.sqrt(lm_base.fan_in_of(d) / d.shape[0]) if d.init == "scaled" else p
+
+    params = rescale(params, defs)
+    bf = lm_transformer.Transformer(cfg, params)
+    f32 = lm_transformer.Transformer(dataclasses.replace(cfg, act_dtype="float32"), params)
+    _, dec = lm_trace(bf, prompts, 0)
+    fwd, _ = bf({"tokens": prompts})
+    truth, _ = f32({"tokens": prompts})
+    for what, got, want in (("forward vs decode", fwd, dec), ("bf16 forward vs fp32 forward", fwd, truth)):
+        excess, dmax, agree, tie = lm_bf16_gap(got, want)
+        log(f"[lm_serve] {cfg.name} under the reference's init (fan_in = n_layers), {what}: worst "
+            f"|d| - {LM_BF16_TOL}|ref| = {excess:.4f}, max |d| {dmax:.4f}, argmax agreement {tie:.4f} "
+            f"at bf16 resolution, {agree:.4f} exact (not a check)")
+
+
+def lm_check_c(ids: torch.Tensor, vocab: int, label: str) -> bool:
+    """Check (c): every generated id lies in [0, vocab)."""
+    ok = bool(((ids >= 0) & (ids < vocab)).all())
+    log(f"[lm_serve] check (c) {label}: {ids.numel()} generated ids in [0, {vocab}): {ok}")
+    return ok
+
+
+def lm_profile(model, prompts: torch.Tensor, n_gen: int, step, label: str) -> None:
+    """Where a decode step's time goes: ``serve.generate`` over a short
+    prompt under torch.profiler (:func:`device_time`), with the device
+    launches per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_steps = prompts.shape[1] + n_gen
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.generate(model, prompts, n_gen, step)
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, per_kernel = device_time(prof)
+    n_launch = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"[lm_serve] {label} profiled: {n_steps} steps of batch {prompts.shape[0]} in {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms = {busy / wall:.3f} of wall, {n_launch / n_steps:.0f} device "
+        f"launches per step")
+    for name, ms in per_kernel[:5]:
+        log(f"  device {ms:9.2f} ms  {name[:100]}")
+
+
+def lm_serve_run(cfg, n_gen: int, label: str, smi: str) -> tuple[object, torch.Tensor, torch.Tensor, bool]:
+    """Build ``cfg``'s model from a seeded generator on the card and serve
+    LM_REQUESTS prompts of LM_PROMPT tokens through ``serve.generate``
+    (a short warm-up first). Returns (model, prompts, ids, ids reproduced
+    by the same steps run again)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompts = serve.lm_prompts(cfg, LM_REQUESTS, LM_PROMPT)
+    step = ts.make_serve_step(cfg)
+    _, w_pre, w_dec = serve.generate(model, prompts[:, :8], 4, step)
+    ids, t_pre, t_dec = serve.generate(model, prompts, n_gen, step)
+    B, T = prompts.shape
+    kv_bytes = 2 * cfg.n_layers * B * (T + n_gen) * cfg.n_kv_heads * cfg.hd * 2
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[lm_serve] {label}: {n_params:,} params ({4 * n_params / 1e9:.3f} GB fp32 at init; "
+        f"{param_bytes / 1e9:.3f} GB held for serving in {cfg.act_dtype}, norms fp32), built in "
+        f"{t_build:.3f}s; warm-up (8x8 prompt, 4 generated) {w_pre + w_dec:.3f}s")
+    log(f"[lm_serve] {label}: {B} requests x {T} prompt tokens, prefill by decode in {t_pre:.4f}s "
+        f"({B * T / t_pre:.1f} prompt tok/s, {1e3 * t_pre / T:.3f} ms/step); decode {n_gen} steps in "
+        f"{t_dec:.4f}s ({B * n_gen / t_dec:.1f} tok/s, {1e3 * t_dec / n_gen:.3f} ms/step); KV cache "
+        f"{kv_bytes / 2**20:.1f} MiB bf16; peak {peak:.3f} GiB; {smi}")
+    lm_profile(model, prompts[:, :16], 16, step, label)
+    same, _ = lm_trace(model, prompts, n_gen)
+    reproduced = torch.equal(same, ids)
+    log(f"[lm_serve] {label}: the same steps run again give the same {ids.numel()} ids: {reproduced}")
+    return model, prompts, ids, reproduced
+
+
+def lm_check_b(cfg) -> bool:
+    """Check (b): ``cfg`` at act_dtype float32 from the serving model's seed
+    on the card and on the CPU (the card's weights copied), TF32 off:
+    generated ids equal, logits within LM_FP32_REL of the largest."""
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    params = lm_base.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 lm_transformer.model_defs(cfg32))
+    card = lm_transformer.Transformer(cfg32, params)
+    host = lm_transformer.Transformer(cfg32, lm_base.tree_map(lambda t: t.cpu(), params))
+    prompts = serve.lm_prompts(cfg32, LM_CPU_BATCH, LM_CPU_PROMPT)
+    t0 = time.perf_counter()
+    ids_d, lg_d = lm_trace(card, prompts, LM_CPU_GEN)
+    ids_h, lg_h = lm_trace(host, prompts.cpu(), LM_CPU_GEN)
+    rel = float((lg_d.cpu() - lg_h).abs().max() / lg_h.abs().max())
+    same = torch.equal(ids_d.cpu(), ids_h)
+    ok = same and rel <= LM_FP32_REL
+    log(f"[lm_serve] check (b) {cfg.name} act fp32, card vs CPU (batch {LM_CPU_BATCH}, "
+        f"{LM_CPU_PROMPT} prompt, {LM_CPU_GEN} generated; tf32 {torch.backends.cuda.matmul.allow_tf32}): "
+        f"ids equal {same} {ids_h.tolist()}; max |d logit| / max |logit| {rel:.3e} (bar {LM_FP32_REL}) "
+        f"in {time.perf_counter() - t0:.2f}s: {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def phase_lm_serve(smi: str) -> float:
+    """The LM stack's serving path on the card: qwen1.5-0.5b at full width
+    and depth (8 requests x 128 prompt tokens, 64 generated, greedy) through
+    ``launch.serve``'s functions, checks (a)-(c), and granite-34b at full
+    width on 4 of its 88 layers. The path launches none of the repo's
+    kernels: the counts are set to 0 before it and must read 0 after.
+    Returns the phase's seconds."""
+    log("== lm_serve: the LM stack's serving path (dense body) at full width")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    ok = []
+    with torch.inference_mode():
+        cfg = lm_configs.get(LM_ARCH)
+        model, prompts, ids, same = lm_serve_run(cfg, LM_GEN, cfg.name, smi)
+        ok += [same, lm_check_c(ids, cfg.vocab, cfg.name), lm_check_a(model, prompts, cfg.name)]
+        del model
+        lm_reference_init_gap(cfg, prompts)
+        ok.append(lm_check_b(cfg))
+        gcfg = dataclasses.replace(lm_configs.get(LM_MQA_ARCH), n_layers=LM_MQA_LAYERS)
+        log(f"reduced: {gcfg.name} n_layers {lm_configs.get(LM_MQA_ARCH).n_layers} -> {LM_MQA_LAYERS} "
+            f"(full width: d_model {gcfg.d_model}, {gcfg.n_heads} heads, kv {gcfg.n_kv_heads}, "
+            f"d_ff {gcfg.d_ff}, vocab {gcfg.vocab}); {LM_MQA_GEN} generated tokens")
+        model, prompts, ids, same = lm_serve_run(gcfg, LM_MQA_GEN, f"{gcfg.name} (4 layers)", smi)
+        ok += [same, lm_check_c(ids, gcfg.vocab, gcfg.name), lm_check_a(model, prompts, gcfg.name)]
+        del model
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[lm_serve] launch counts of the repo's kernels {json.dumps(counts)}")
+    assert not any(counts.values()), counts
+    assert all(ok), ok
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -1891,11 +2133,13 @@ def main() -> None:
     ptx = phase_build()
     report = phase_kernels()
     log(f"[{elapsed():.1f}s] kernels checked")
+    lm_s = phase_lm_serve(env["smi"])
+    log(f"[{elapsed():.1f}s] lm_serve done in {lm_s:.1f}s")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx, MAIN_SHARE_S - lm_s)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

@@ -7,6 +7,9 @@ turn the reference's artifacts, given as numpy arrays (anything
 from the same control plane and each stage can be held to exact parity.
 Like the rest of the port they put their tensors on the card unless the
 caller passes ``device="cpu"``. Nothing here imports the JAX package.
+
+``lm_params`` does the same for the LM stack: the reference's parameter
+pytree (numpy arrays) becomes a ``Transformer`` holding the same weights.
 """
 from __future__ import annotations
 
@@ -89,3 +92,30 @@ def join_plan(
         delta=float(delta),
         p=int(p),
     )
+
+
+def lm_params(params_np, cfg, device: torch.device | str = "cuda"):
+    """A ``models.transformer.Transformer`` holding the reference's LM
+    parameters: ``params_np`` is the pytree of ``repro.models.base.
+    init_params(key, model_defs(cfg))`` as numpy arrays (anything
+    ``np.asarray`` takes), layer params stacked on the leading "layers"
+    axis; names and shapes must be ``model_defs(cfg)``'s. Weights keep the
+    reference's (d_in, d_out) layout (``x @ w``)."""
+    from repro_torch.models import transformer  # deferred: LM stack
+
+    dev = ops.resolve_device(device)
+    want = transformer.model_defs(cfg)
+
+    def place(defs, tree, path=""):
+        if isinstance(defs, dict):
+            if not isinstance(tree, dict) or set(tree) != set(defs):
+                raise ValueError(f"{cfg.name}: params at {path or '/'} have keys "
+                                 f"{sorted(tree) if isinstance(tree, dict) else type(tree)}, "
+                                 f"want {sorted(defs)}")
+            return {k: place(defs[k], tree[k], f"{path}/{k}") for k in defs}
+        a = np.asarray(tree)
+        if a.shape != defs.shape:
+            raise ValueError(f"{cfg.name}: {path} has shape {a.shape}, want {defs.shape}")
+        return torch.as_tensor(np.array(a, np.float32), device=dev).to(defs.dtype)
+
+    return transformer.Transformer(cfg, place(want, params_np))

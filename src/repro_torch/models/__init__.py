@@ -1,0 +1,9 @@
+"""Model zoo, the dense-body families (the port of ``repro.models``).
+
+  base         — ParamDef system (init on a torch.Generator, meta tensors)
+  config       — ArchConfig / ShapeConfig / skip rules
+  layers       — norms, RoPE, MLP, embeddings
+  attention    — chunked (flash-style) GQA + cached decode
+  transformer  — assembly: forward / init_state / decode_step, Transformer
+"""
+from repro_torch.models import attention, base, config, layers, transformer  # noqa: F401

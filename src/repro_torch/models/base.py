@@ -1,0 +1,83 @@
+"""Parameter system of the model zoo.
+
+Models are pure functions over nested dicts of tensors. Each model builds a
+tree of ``ParamDef`` (shape + logical axes + initializer), the same tree as
+the JAX package's ``repro.models.base``; two interpreters consume it:
+
+  init_params        — materialize real tensors from a ``torch.Generator``
+  abstract_params    — ``meta``-device tensors (shapes and dtypes, zero
+                       allocation)
+
+The logical axes are kept on every ``ParamDef`` for the multi-card slice;
+the mesh rules that read them (``LOGICAL_RULES`` … ``shard_act``) have no
+single-card meaning and are not ported yet (ROADMAP §1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis name per dim
+    init: str = "normal"  # normal | zeros | ones | scaled
+    scale: float = 0.02
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def pdef(shape, axes, init="normal", scale=0.02, dtype=torch.float32) -> ParamDef:
+    return ParamDef(tuple(shape), tuple(axes), init, scale, dtype)
+
+
+def tree_map(fn, tree: PyTree) -> PyTree:
+    """``fn`` over the leaves of a nested dict, in sorted key order (the
+    order ``jax.tree.flatten`` visits a dict in)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def fan_in_of(d: ParamDef) -> int:
+    """A weight's input width: its first dimension after a stacked
+    "layers" axis (1 for a vector)."""
+    shape = d.shape[1:] if d.axes[:1] == ("layers",) else d.shape
+    return shape[0] if len(shape) >= 2 else 1
+
+
+def init_params(generator: torch.Generator, defs: PyTree, dtype: torch.dtype | None = None) -> PyTree:
+    """Real tensors for ``defs`` on the generator's device, drawn from
+    ``generator`` leaf by leaf in sorted key order. ``scaled`` is a normal
+    over √fan_in, fan_in the weight's own input width (``fan_in_of``). The
+    reference takes shape[0], which for a stacked layer weight is the layer
+    count: its layer weights come out √(d_in / n_layers) times larger, and
+    at full width its bf16 and fp32 forwards disagree on about half the
+    argmaxes (ROADMAP §3)."""
+    device = generator.device
+
+    def make(d: ParamDef) -> torch.Tensor:
+        dt = dtype or d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        z = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=device)
+        if d.init == "scaled":  # fan-in scaled normal
+            fan_in = fan_in_of(d)
+            return (z / math.sqrt(max(fan_in, 1))).to(dt)
+        return (z * d.scale).to(dt)
+
+    return tree_map(make, defs)
+
+
+def abstract_params(defs: PyTree, dtype: torch.dtype | None = None) -> PyTree:
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype or d.dtype, device="meta"), defs)

@@ -1,0 +1,2 @@
+"""Step functions of the serving path (the port of ``repro.train``)."""
+from repro_torch.train import train_step  # noqa: F401

@@ -40,6 +40,11 @@ def test_package_imports_without_jax():
         "from repro_torch.core import baselines, distributed, index, spjoin, verify\n"
         "from repro_torch.kernels import compact, histogram, ops\n"
         "from repro_torch.data import dedup, pipeline, synthetic, vectorize\n"
+        "from repro_torch import configs, models, train\n"
+        "assert len({configs.get(n).name for n in configs.ARCH_NAMES}) == 10\n"
+        "from repro_torch.models import attention, base, config, layers, transformer\n"
+        "from repro_torch.train import train_step\n"
+        "from repro_torch.launch import serve\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
