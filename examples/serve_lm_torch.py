@@ -4,6 +4,10 @@ then greedy decode against the bf16 KV cache.
     PYTHONPATH=src python examples/serve_lm_torch.py                    # on the card
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
     PYTHONPATH=src python examples/serve_lm_torch.py --arch granite-34b --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-2.7b --device cpu
+
+Every decoder of the zoo serves: the dense, vlm, moe (deepseek-moe-16b,
+llama4-scout-17b-a16e), hybrid (zamba2-2.7b) and ssm (xlstm-1.3b) families.
 
 (Equivalent to: python -m repro_torch.launch.serve --arch <a> --reduced ...)
 """

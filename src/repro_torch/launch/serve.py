@@ -123,10 +123,13 @@ def serve_range(args) -> None:
 def build_model(cfg: ArchConfig, *, seed: int = 0,
                 device: torch.device | str = "cuda") -> transformer.Transformer:
     """``cfg``'s model with random weights from a seeded generator on
-    ``device``, placed for serving."""
+    ``device``, placed for serving. Each leaf is drawn in fp32 and cast to
+    its serving dtype at once, so the build never holds the whole fp32
+    tree (deepseek-moe-16b: 65.5 GB in fp32, 32.8 GB held in bf16)."""
     dev = ops.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return transformer.Transformer(cfg, base.init_params(gen, transformer.model_defs(cfg)))
+    params = base.init_params(gen, transformer.model_defs(cfg), transformer.serving_dtype(cfg))
+    return transformer.Transformer(cfg, params)
 
 
 def lm_prompts(cfg: ArchConfig, batch: int, prompt_len: int,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -42,41 +42,63 @@ def pdef(shape, axes, init="normal", scale=0.02, dtype=torch.float32) -> ParamDe
 def tree_map(fn, tree: PyTree) -> PyTree:
     """``fn`` over the leaves of a nested dict, in sorted key order (the
     order ``jax.tree.flatten`` visits a dict in)."""
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def tree_map_with_path(fn, tree: PyTree, path: tuple[str, ...] = ()) -> PyTree:
+    """``fn(path, leaf)`` over the leaves of a nested dict in sorted key
+    order, ``path`` the keys from the root to the leaf."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map_with_path(fn, tree[k], (*path, k)) for k in sorted(tree)}
+    return fn(path, tree)
 
 
 def fan_in_of(d: ParamDef) -> int:
-    """A weight's input width: its first dimension after a stacked
-    "layers" axis (1 for a vector)."""
-    shape = d.shape[1:] if d.axes[:1] == ("layers",) else d.shape
-    return shape[0] if len(shape) >= 2 else 1
+    """A weight's input width: the dimension ``x @ w`` contracts, its
+    second-to-last (a matrix (d_in, d_out), each of a batch of them: the
+    experts' (E, d_in, d_out), sLSTM's per-head (H, dh, 4 dh)), after the
+    stacked "layers" axes (one per stacking: hybrid and ssm stack theirs as
+    (groups, per group, ...)); 1 for a vector."""
+    n = 0
+    while n < len(d.axes) and d.axes[n] == "layers":
+        n += 1
+    shape = d.shape[n:]
+    return shape[-2] if len(shape) >= 2 else 1
 
 
-def init_params(generator: torch.Generator, defs: PyTree, dtype: torch.dtype | None = None) -> PyTree:
+def init_params(
+    generator: torch.Generator,
+    defs: PyTree,
+    dtype: torch.dtype | Callable[[tuple[str, ...]], torch.dtype] | None = None,
+) -> PyTree:
     """Real tensors for ``defs`` on the generator's device, drawn from
-    ``generator`` leaf by leaf in sorted key order. ``scaled`` is a normal
-    over √fan_in, fan_in the weight's own input width (``fan_in_of``). The
-    reference takes shape[0], which for a stacked layer weight is the layer
-    count: its layer weights come out √(d_in / n_layers) times larger, and
-    at full width its bf16 and fp32 forwards disagree on about half the
-    argmaxes (ROADMAP §3)."""
+    ``generator`` leaf by leaf in sorted key order: one fp32 normal per
+    random leaf. ``scaled`` is a normal over √fan_in, fan_in the weight's
+    own input width (``fan_in_of``). The reference takes shape[0], which
+    for a stacked layer weight is the layer count: its layer weights come
+    out √(d_in / n_layers) times larger, and at full width its bf16 and
+    fp32 forwards disagree on about half the argmaxes (ROADMAP §3).
+
+    ``dtype``: each leaf's dtype (default: its ``ParamDef``'s), one for
+    every leaf or a function of the leaf's key path
+    (``transformer.serving_dtype``). A leaf is cast as soon as it is drawn,
+    so the largest fp32 tensor alive is one leaf, never the whole tree."""
     device = generator.device
 
-    def make(d: ParamDef) -> torch.Tensor:
-        dt = dtype or d.dtype
+    def make(path: tuple[str, ...], d: ParamDef) -> torch.Tensor:
+        dt = (dtype(path) if callable(dtype) else dtype) or d.dtype
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=device)
         z = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=device)
         if d.init == "scaled":  # fan-in scaled normal
-            fan_in = fan_in_of(d)
-            return (z / math.sqrt(max(fan_in, 1))).to(dt)
-        return (z * d.scale).to(dt)
+            z.div_(math.sqrt(max(fan_in_of(d), 1)))
+        else:
+            z.mul_(d.scale)
+        return z.to(dt)
 
-    return tree_map(make, defs)
+    return tree_map_with_path(make, defs)
 
 
 def abstract_params(defs: PyTree, dtype: torch.dtype | None = None) -> PyTree:

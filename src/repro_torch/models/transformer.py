@@ -1,57 +1,53 @@
-"""Model assembly: the dense-body families of the zoo as one stack.
+"""Model assembly: every architecture of the zoo as one composable stack.
 
-The port of ``repro.models.transformer`` for the families that share the
-dense block body — embed -> residual blocks (pre-norm GQA attention +
-(Swi)GLU MLP) -> final norm -> unembed:
+The port of ``repro.models.transformer``. Families share a skeleton —
+embed -> residual blocks -> final norm -> unembed — and differ only in the
+block body:
 
-  dense   standard decoder (stablelm / granite / phi3 / qwen1.5)
-  vlm     decoder with prepended patch embeddings (llava-next)
-  audio   encoder-only over frame embeddings (hubert)
+  dense / vlm / audio   pre-norm GQA attention + (Swi)GLU MLP
+  moe                   attention + capacity-dispatch MoE (optional dense L0)
+  hybrid (zamba2)       Mamba2 backbone; a weight-SHARED attention+MLP block
+                        is applied after every ``shared_attn_every`` layers
+  ssm (xlstm)           groups of (slstm_every - 1) mLSTM + 1 sLSTM
 
-``moe``, ``hybrid`` and ``ssm`` raise ``NotImplementedError``: they wait for
-their own slices (ROADMAP §1).
-
-``model_defs`` is the reference's ParamDef tree (the layer params stacked on
-a leading "layers" axis), so ``base.init_params`` and ``convert.lm_params``
-both give that layout. ``Transformer`` holds it for serving: the stack
-becomes an ``nn.ModuleList`` with one entry per layer, and every weight the
-reference casts to the activation dtype at each use is cast once (the norm
-scales stay fp32, as the norms read them). The functions below take the
-``Transformer``'s tree (``model.tree``: "layers" a sequence of per-layer
-dicts).
+``model_defs`` is the reference's ParamDef tree (layer params stacked on a
+leading "layers" axis, twice — (groups, per group, ...) — for hybrid and
+ssm), so ``base.init_params`` and ``convert.lm_params`` both give that
+layout. ``Transformer`` holds it for serving: each stack becomes nested
+``nn.ModuleList``s with one entry per layer, and every weight the
+reference casts to the activation dtype at each use is cast once; the
+leaves it reads in fp32 stay fp32 (``serving_dtype``). The functions below
+take the ``Transformer``'s tree (``model.tree``).
 
 Three entry points, matching the reference's shape kinds:
-  forward()      full-sequence logits (train / prefill)
-  init_state()   decode cache (bf16 KV caches stacked over layers)
-  decode_step()  one token in, logits out, the cache written in place
+  forward()      full-sequence logits (train / prefill) and the MoE aux loss
+  init_state()   decode state (KV caches / SSM states / conv histories),
+                 stacked over layers as in the reference
+  decode_step()  one token in, logits out, the state written in place
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.base import ParamDef, PyTree
 from repro_torch.models.config import ArchConfig
 
 Tensor = torch.Tensor
 
 DENSE_BODY = ("dense", "vlm", "audio")
-_LATER = {
-    "moe": "ROADMAP §1 item 5, slice 1 (models/moe.py)",
-    "hybrid": "ROADMAP §1 item 5, slice 2 (models/ssm.py)",
-    "ssm": "ROADMAP §1 item 5, slice 2 (models/xlstm.py)",
-}
+FAMILIES = (*DENSE_BODY, "moe", "hybrid", "ssm")
+# Leaves the reference reads in fp32 without a cast (besides the norms'
+# scales), by their block and name: Mamba2's A_log, D, dt_bias and sLSTM's
+# recurrent matrix r.
+FP32_LEAVES = frozenset({("mamba", "A_log"), ("mamba", "D"), ("mamba", "dt_bias"), ("slstm", "r")})
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet ({_LATER[cfg.family]})"
-        )
-    if cfg.family not in DENSE_BODY:
+    if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -83,13 +79,70 @@ def model_defs(cfg: ArchConfig) -> dict:
         defs["frontend_proj"] = layers.linear_defs(cfg.frontend_dim, d, ("conv", "embed"))
     if cfg.frontend == "vision_patches":
         defs["patch_proj"] = layers.linear_defs(cfg.frontend_dim, d, ("conv", "embed"))
-    defs["layers"] = _stack_defs(_attn_layer_defs(cfg), cfg.n_layers)
+
+    if cfg.family in DENSE_BODY:
+        defs["layers"] = _stack_defs(_attn_layer_defs(cfg), cfg.n_layers)
+    elif cfg.family == "moe":
+        moe_layer = {
+            "attn_norm": layers.rmsnorm_defs(d),
+            "attn": attention.attn_defs(cfg),
+            "mlp_norm": layers.rmsnorm_defs(d),
+            "moe": moe.moe_defs(cfg),
+        }
+        defs["layers"] = _stack_defs(moe_layer, _n_moe(cfg))
+        if cfg.first_layer_dense:
+            defs["layer0"] = {
+                "attn_norm": layers.rmsnorm_defs(d),
+                "attn": attention.attn_defs(cfg),
+                "mlp_norm": layers.rmsnorm_defs(d),
+                "mlp": layers.mlp_defs(cfg, cfg.d_ff or 4 * d),
+            }
+    elif cfg.family == "hybrid":
+        groups, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        mamba_layer = {"norm": layers.rmsnorm_defs(d), "mamba": ssm.mamba2_defs(cfg)}
+        defs["layers"] = _stack_defs(_stack_defs(mamba_layer, per), groups)
+        defs["shared"] = _attn_layer_defs(cfg)  # ONE block, applied `groups` times
+    else:  # ssm
+        groups, per_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+        m_layer = {"norm": layers.rmsnorm_defs(d), "mlstm": xlstm.mlstm_defs(cfg)}
+        s_layer = {"norm": layers.rmsnorm_defs(d), "slstm": xlstm.slstm_defs(cfg)}
+        defs["layers"] = _stack_defs(_stack_defs(m_layer, per_m), groups)
+        defs["slstm_layers"] = _stack_defs(s_layer, groups)
     return defs
+
+
+def _n_moe(cfg: ArchConfig) -> int:
+    return cfg.n_layers - (1 if cfg.first_layer_dense else 0)
+
+
+def serving_dtype(cfg: ArchConfig) -> Callable[[tuple[str, ...]], torch.dtype]:
+    """The dtype a leaf is held in for serving, by its key path: fp32 for
+    a norm's scale and the ``FP32_LEAVES``, the activation dtype for every
+    other leaf (the reference casts those to it at each use)."""
+    act = layers.act_dt(cfg)
+
+    def dtype_of(path: tuple[str, ...]) -> torch.dtype:
+        if tuple(path[-2:]) in FP32_LEAVES or (len(path) > 1 and path[-2].endswith("norm")):
+            return torch.float32
+        return act
+
+    return dtype_of
 
 
 # ---------------------------------------------------------------------------
 # The module that holds the weights
 # ---------------------------------------------------------------------------
+
+
+class Node(nn.Module):
+    """One dict of the reference's tree: tensors as frozen parameters,
+    sub-dicts as child modules, read as ``node[key]``."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
 
 def _unstack(stack: PyTree, i: int) -> PyTree:
@@ -98,37 +151,50 @@ def _unstack(stack: PyTree, i: int) -> PyTree:
     return stack[i]
 
 
-def _as_module(tree: PyTree, dt: torch.dtype, norm: bool = False) -> nn.Module:
-    """Nested dicts -> ModuleDicts, leaf dicts -> ParameterDicts (frozen).
-    Every leaf but a norm's scale is cast to ``dt``."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({
-            k: nn.Parameter(v if norm else v.to(dt), requires_grad=False)
-            for k, v in tree.items()
-        })
-    return nn.ModuleDict({
-        k: _as_module(v, dt, norm=k.endswith("norm")) for k, v in tree.items()
-    })
+def _first_leaf(tree: PyTree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _place(tree: PyTree, dtype_of, path: tuple[str, ...], depth: int) -> nn.Module:
+    """``tree`` as modules: ``depth`` stacked axes become nested
+    ``ModuleList``s (a view per layer, no copy), dicts ``Node``s, leaves
+    frozen parameters cast to ``dtype_of(path)``."""
+    if depth:
+        n = _first_leaf(tree).shape[0]
+        return nn.ModuleList(_place(_unstack(tree, i), dtype_of, path, depth - 1) for i in range(n))
+    node = Node()
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            node.add_module(k, _place(v, dtype_of, (*path, k), 0))
+        else:
+            node.register_parameter(k, nn.Parameter(v.to(dtype_of((*path, k))), requires_grad=False))
+    return node
 
 
 class Transformer(nn.Module):
-    """A dense-body model's weights, placed for serving.
+    """A model's weights, placed for serving.
 
     ``params`` is the reference's layout (``model_defs``: layer params
-    stacked on a leading axis), from ``base.init_params`` or
-    ``convert.lm_params``; the module holds them on their device, the layers
-    as an ``nn.ModuleList``, cast to the activation dtype once."""
+    stacked on leading axes), from ``base.init_params`` or
+    ``convert.lm_params``; the module holds them on their device, each
+    stack as nested ``nn.ModuleList``s (moe: ``layer0`` and the MoE
+    layers; hybrid: groups of Mamba2 layers and the ``shared`` block; ssm:
+    groups of mLSTM layers and ``slstm_layers``), each leaf in its
+    ``serving_dtype`` (a cast only where it is not held so already)."""
 
     def __init__(self, cfg: ArchConfig, params: PyTree):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
-        dt = layers.act_dt(cfg)
-        top = {k: v for k, v in params.items() if k != "layers"}
-        self.tree = _as_module(top, dt)
-        self.tree["layers"] = nn.ModuleList(
-            _as_module(_unstack(params["layers"], i), dt) for i in range(cfg.n_layers)
-        )
+        defs = model_defs(cfg)
+        dtype_of = serving_dtype(cfg)
+        self.tree = Node()
+        for k in sorted(params):
+            n_stacked = _first_leaf(defs[k]).axes.count("layers")
+            self.tree.add_module(k, _place(params[k], dtype_of, (k,), n_stacked))
 
     def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
         return forward(self.tree, batch, self.cfg, causal_mode=causal_mode, last_only=last_only)
@@ -141,7 +207,7 @@ class Transformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Block body
+# Block bodies
 # ---------------------------------------------------------------------------
 
 
@@ -151,6 +217,15 @@ def _attn_mlp_body(lp, h, cfg, causal_mode):
     )
     h = h + a
     return h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+
+
+def _moe_body(lp, h, aux, cfg, causal_mode):
+    a, _ = attention.attention_block(
+        lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, causal_mode=causal_mode
+    )
+    h = h + a
+    y, aux_l = moe.moe_block(lp["moe"], layers.rmsnorm(lp["mlp_norm"], h), cfg)
+    return h + y, aux + aux_l
 
 
 # ---------------------------------------------------------------------------
@@ -178,19 +253,39 @@ def forward(
     causal_mode: str = "blocklist",
     last_only: bool = False,
 ) -> tuple[Tensor, Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, vocab), aux_loss).
+    """Full-sequence forward. Returns (logits (B, S, vocab), aux_loss: the
+    MoE layers' load-balance losses summed, 0 for the other families).
 
     ``last_only`` slices the hidden state to the final position BEFORE the
     unembed — serving prefill emits (B, 1, vocab) and the (B, S, vocab)
     logits tensor never exists."""
     h = embed_inputs(params, batch, cfg)
-    for lp in params["layers"]:
-        h = _attn_mlp_body(lp, h, cfg, causal_mode)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in DENSE_BODY:
+        for lp in params["layers"]:
+            h = _attn_mlp_body(lp, h, cfg, causal_mode)
+    elif cfg.family == "moe":
+        if cfg.first_layer_dense:
+            h = _attn_mlp_body(params["layer0"], h, cfg, causal_mode)
+        for lp in params["layers"]:
+            h, aux = _moe_body(lp, h, aux, cfg, causal_mode)
+    elif cfg.family == "hybrid":
+        for glp in params["layers"]:
+            for lp in glp:
+                y, _ = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg)
+                h = h + y
+            h = _attn_mlp_body(params["shared"], h, cfg, causal_mode)
+    else:  # ssm
+        for glp, slp in zip(params["layers"], params["slstm_layers"]):
+            for lp in glp:
+                y, _ = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg)
+                h = h + y
+            y, _ = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg)
+            h = h + y
     if last_only:
         h = h[:, -1:]
     h = layers.rmsnorm(params["final_norm"], h)
-    logits = layers.unembed(params["embed"], h, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return layers.unembed(params["embed"], h, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -198,36 +293,97 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
+def _stacked(x: Tensor, *lead: int) -> Tensor:
+    return torch.zeros((*lead, *x.shape), dtype=x.dtype, device=x.device)
+
+
 def init_state(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str = "cuda") -> PyTree:
-    """Decode state: the bf16 KV caches of every layer, stacked on a
-    leading layer axis as in the reference ({"kv": {"k", "v"}} of shape
-    (n_layers, batch, max_len, n_kv_heads, head_dim))."""
+    """Decode state, the reference's pytree with its shapes and dtypes:
+      dense / vlm  {"kv": {"k", "v"}} (n_layers, batch, max_len, n_kv_heads,
+                   head_dim) bf16
+      moe          "kv" over the MoE layers, plus "kv0" for a dense layer 0
+      hybrid       {"mamba": {"conv" (groups, per, batch, W-1, C) bf16,
+                   "ssd" (groups, per, batch, H, N, P) fp32}, "kv" (groups, ...)}
+      ssm          {"mlstm": (groups, per_m, batch, H, dh, dh+1) fp32,
+                   "slstm": (c, h), each (groups, batch, H, dh) fp32}"""
     _check_family(cfg)
-    if cfg.family == "audio":
-        raise ValueError(f"no decode state for family {cfg.family!r}")
-    cache = attention.init_kv_cache(cfg, batch, max_len, device=device)
-    return {"kv": {k: torch.zeros((cfg.n_layers, *x.shape), dtype=x.dtype, device=x.device)
-                   for k, x in cache.items()}}
+    if cfg.family in ("dense", "vlm", "moe"):
+        cache = attention.init_kv_cache(cfg, batch, max_len, device=device)
+        n = _n_moe(cfg) if cfg.family == "moe" else cfg.n_layers
+        out = {"kv": {k: _stacked(x, n) for k, x in cache.items()}}
+        if cfg.family == "moe" and cfg.first_layer_dense:
+            out["kv0"] = attention.init_kv_cache(cfg, batch, max_len, device=device)
+        return out
+    if cfg.family == "hybrid":
+        groups, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        ms = ssm.mamba2_state_init(cfg, batch, device=device)
+        kv = attention.init_kv_cache(cfg, batch, max_len, device=device)
+        return {"mamba": {k: _stacked(x, groups, per) for k, x in ms.items()},
+                "kv": {k: _stacked(x, groups) for k, x in kv.items()}}
+    if cfg.family == "ssm":
+        groups, per_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+        m = xlstm.mlstm_state_init(cfg, batch, device=device)
+        s = xlstm.slstm_state_init(cfg, batch, device=device)
+        return {"mlstm": _stacked(m, groups, per_m), "slstm": tuple(_stacked(x, groups) for x in s)}
+    raise ValueError(f"no decode state for family {cfg.family!r}")
+
+
+def _attn_decode_body(lp, h, kv, length, cfg):
+    a, _ = attention.attention_block(
+        lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, cache=kv, cache_length=length
+    )
+    h = h + a
+    if "mlp" in lp:
+        return h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+    y, _ = moe.moe_block(lp["moe"], layers.rmsnorm(lp["mlp_norm"], h), cfg)
+    return h + y
 
 
 def decode_step(
     params: Any, token: Tensor, state: PyTree, length: int | Tensor, cfg: ArchConfig
 ) -> tuple[Tensor, PyTree]:
     """One decode step. token: (B, 1) int (or (B, 1, d_model) activations);
-    length: tokens already cached. Returns (logits (B, 1, vocab), state),
-    the state's caches written in place at ``length``."""
+    length: tokens already cached. Returns (logits (B, 1, vocab), state):
+    each KV cache written in place at ``length``, each recurrent state
+    overwritten in place with its next value. Mamba2's conv history is
+    returned in the activation dtype, as the reference's step returns it:
+    at act fp32 the bf16 history of ``init_state`` is replaced by an fp32
+    one on the first step."""
     h = layers.embed(params["embed"], token, cfg) if token.dim() == 2 else token
-    kv = state["kv"]
-    for i, lp in enumerate(params["layers"]):
-        a, _ = attention.attention_block(
-            lp["attn"],
-            layers.rmsnorm(lp["attn_norm"], h),
-            cfg,
-            cache={"k": kv["k"][i], "v": kv["v"][i]},
-            cache_length=length,
-        )
-        h = h + a
-        h = h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+
+    def kv_at(kv: dict, i: int) -> dict:
+        return {"k": kv["k"][i], "v": kv["v"][i]}
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        if cfg.family == "moe" and cfg.first_layer_dense:
+            h = _attn_decode_body(params["layer0"], h, state["kv0"], length, cfg)
+        for i, lp in enumerate(params["layers"]):
+            h = _attn_decode_body(lp, h, kv_at(state["kv"], i), length, cfg)
+    elif cfg.family == "hybrid":
+        mamba = state["mamba"]
+        if mamba["conv"].dtype != h.dtype:
+            mamba["conv"] = mamba["conv"].to(h.dtype)
+        conv, ssd = mamba["conv"], mamba["ssd"]
+        for g, glp in enumerate(params["layers"]):
+            for i, lp in enumerate(glp):
+                y, st = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg,
+                                         state={"conv": conv[g, i], "ssd": ssd[g, i]})
+                conv[g, i] = st["conv"]
+                ssd[g, i] = st["ssd"]
+                h = h + y
+            h = _attn_decode_body(params["shared"], h, kv_at(state["kv"], g), length, cfg)
+    elif cfg.family == "ssm":
+        m, (c, hs) = state["mlstm"], state["slstm"]
+        for g, (glp, slp) in enumerate(zip(params["layers"], params["slstm_layers"])):
+            for i, lp in enumerate(glp):
+                y, m[g, i] = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg,
+                                               state=m[g, i])
+                h = h + y
+            y, (c[g], hs[g]) = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg,
+                                                 state=(c[g], hs[g]))
+            h = h + y
+    else:
+        raise ValueError(f"no decode state for family {cfg.family!r}")
     h = layers.rmsnorm(params["final_norm"], h)
     return layers.unembed(params["embed"], h, cfg), state

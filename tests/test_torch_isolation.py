@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package, and the package loads in
+"""The port stands alone: nothing under ``src/repro_torch/``, in
+``chip_smoke.py`` or in the port's examples imports JAX or the JAX package, and the package loads in
 a process where importing ``jax`` fails."""
 import ast
 import os
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -42,7 +43,7 @@ def test_package_imports_without_jax():
         "from repro_torch.data import dedup, pipeline, synthetic, vectorize\n"
         "from repro_torch import configs, models, train\n"
         "assert len({configs.get(n).name for n in configs.ARCH_NAMES}) == 10\n"
-        "from repro_torch.models import attention, base, config, layers, transformer\n"
+        "from repro_torch.models import attention, base, config, layers, moe, ssm, transformer, xlstm\n"
         "from repro_torch.train import train_step\n"
         "from repro_torch.launch import serve\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
