@@ -60,6 +60,26 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    its decode form on the served weights (0.15 bar); check
                    (b) on a cut depth with one of each block kind. Its
                    seconds come out of the main path's share;
+  lm_train       — the LM stack's training path through launch.train's
+                   functions, outside inference mode (no kernel of the repo;
+                   the launch counts must read 0 after it): (a) qwen1.5-0.5b
+                   at full width and depth, bf16 activations over fp32
+                   leaves, remat "full", 4 x 4,096 tokens (train_4k's
+                   length) in 2 microbatches, 6 steps on one fixed pipeline
+                   batch: loss finite and falling, grad_norm finite, lr equal
+                   to lr_at; seconds per step, tokens/s, model FLOP/s and its
+                   share of the bf16 peak, parameter and optimizer bytes,
+                   peak GiB, one profiled step (busy share, launches, time by
+                   kernel). On its cut to 2 layers (a printed "reduced"
+                   line), batch 2 x 256: (b) act fp32, 2 steps on the card
+                   and on the CPU from the same weights (loss, grad_norm,
+                   every leaf); (c) act fp32, the n_micro = 2 gradient
+                   against n_micro = 1; (d) bf16, 2 steps, a checkpoint
+                   under build/, restored into fresh objects, 2 more steps,
+                   the loss against a straight 4-step run (rel 1e-5; bit
+                   equality logged; bytes, save and restore seconds); (e)
+                   4 steps with int8 error-feedback compression falling. Its
+                   seconds come out of the main path's share too;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -122,7 +142,8 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    over 4,096 rows against the sift-like set.
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
-A full run takes about 12-14 minutes on an H100 (build ~30 s, lm_serve ~3 min).
+A full run takes about 14-16 minutes on an H100 (build ~30 s, lm_serve ~3 min,
+lm_train ~50 s).
 """
 from __future__ import annotations
 
@@ -151,18 +172,23 @@ from repro_torch.kernels import compact as _compact  # noqa: E402
 from repro_torch.kernels import histogram as _histogram  # noqa: E402
 from repro_torch.kernels import mapassign as _mapassign  # noqa: E402
 from repro_torch.kernels import pairdist as _pairdist  # noqa: E402
+from repro_torch.data import pipeline as lm_pipeline  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import base as lm_base  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models import xlstm as lm_xlstm  # noqa: E402
+from repro_torch.train import checkpoint as lm_ckpt  # noqa: E402
+from repro_torch.train import optimizer as lm_opt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 N_ROWS = 1_000_000  # the main path's rows before any "reduced" cut
 MAIN_SHARE_S = 600.0  # the main-path joins' share of the time limit (the
 #   mask and compact joins and the distributed join of the compact join's rows)
@@ -1346,7 +1372,7 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
 def phase_main_path(report: dict, z: torch.Tensor, ptx: list,
                     share: float) -> tuple[dict, dict, torch.Tensor, float, object]:
     """The two main-path joins over the first N_ROWS rows of ``z``, fitted
-    into ``share`` seconds (MAIN_SHARE_S less the lm_serve phase's). The
+    into ``share`` seconds (MAIN_SHARE_S less the lm_serve and lm_train phases'). The
     probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
     launch counts of both joins, the compact join's rows, δ and its
@@ -2340,6 +2366,257 @@ def phase_lm_serve(smi: str) -> float:
     return time.perf_counter() - t0
 
 
+# --------------------------------------------------------------------------
+# lm_train: the LM stack's training path
+# --------------------------------------------------------------------------
+
+LM_TRAIN_SEQ = 4096  # train_4k's sequence length
+LM_TRAIN_BATCH, LM_TRAIN_MICRO = 4, 2  # global batch in n_micro microbatches
+LM_TRAIN_STEPS = 6  # steps on one fixed pipeline batch, check (a)
+LM_TRAIN_LAYERS = 2  # checks (b)-(e): qwen at full width on this many layers
+LM_TRAIN_CUT_B, LM_TRAIN_CUT_S = 2, 256  # their batch and sequence length
+LM_TRAIN_LOSS_REL = 1e-6  # (b): |loss card - loss CPU| / |loss CPU| at each step (measured on an H100: 2.1e-7)
+LM_TRAIN_GNORM_REL = 1e-6  # (b): the same for grad_norm (6.4e-8)
+LM_TRAIN_LEAF_MAX = 2.5e-4  # (b): max |d| over every leaf after the steps (3.5e-5; an Adam
+#   step moves a weight by about lr = 3e-4, and the sign of a near-zero gradient element
+#   decides its direction, so 2 lr x steps bounds it)
+LM_TRAIN_LEAF_SHARE = 0.995  # (b): share of each leaf's elements within 1 % of lr x steps
+#   (smallest 0.99951)
+LM_TRAIN_MICRO_GAP = 2e-5  # (c): max |g2 - g1| over max |g1|, each leaf (3.8e-6)
+LM_TRAIN_RESUME_REL = 1e-5  # (d): the reference test's bound (tests/test_train.py)
+
+
+def lm_train_setup(cfg, n_micro: int = 1, compress: bool = False, steps: int = LM_TRAIN_STEPS,
+                   seed: int = 0):
+    """``launch.train``'s objects for ``cfg``: the model from a seeded
+    generator, the optimizer state, the step (the launcher's optimizer
+    settings for ``steps`` steps)."""
+    ocfg = lm_opt.OptConfig(total_steps=steps, warmup_steps=max(steps // 20, 1), compress_grads=compress)
+    model = lm_train.build_model(cfg, seed=seed)
+    state = lm_opt.init_opt_state(model.param_tree(), ocfg)
+    return model, state, ts.make_train_step(cfg, ocfg, ts.StepConfig(n_micro=n_micro)), ocfg
+
+
+def lm_train_batch(cfg, batch: int, seq: int) -> dict:
+    """The pipeline's step-0 batch on the card."""
+    pipe = lm_pipeline.TokenPipeline(cfg, lm_pipeline.PipelineConfig(seed=0, seq_len=seq, global_batch=batch))
+    return lm_train.to_device(pipe.global_batch(0), "cuda")
+
+
+def lm_train_profile(model, state, step, batch) -> tuple[float, float, int, list]:
+    """One train step under torch.profiler (device events only): (wall ms,
+    device busy ms, device launches, device ms by kernel name, largest
+    first). Reads the profiler's raw events: the step makes tens of
+    thousands of launches, and building its event tree takes longer than
+    the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    per_kernel: dict[str, float] = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            per_kernel[e.name()] = per_kernel.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            n += 1
+    return wall, sum(per_kernel.values()), n, sorted(per_kernel.items(), key=lambda kv: -kv[1])
+
+
+def lm_train_full(smi: str) -> bool:
+    """Check (a): qwen1.5-0.5b at full width and depth, bf16 activations
+    over fp32 leaves, remat "full", train_4k's 4,096 tokens, a global batch
+    of 4 in 2 microbatches (the chunked attention's 4 x 4 blocklist, the
+    fp32 accumulator), LM_TRAIN_STEPS steps on one fixed pipeline batch:
+    the loss finite and falling, grad_norm finite, lr equal to lr_at.
+    Logs seconds per step after the first, tokens/s, model FLOP/s (6 N
+    tokens/s, N = n_params_active) and its share of the dense bf16 peak,
+    parameter and optimizer bytes, peak GiB, and a profiled step."""
+    cfg = lm_configs.get(LM_ARCH)
+    assert cfg.remat == "full" and cfg.act_dtype == "bfloat16", cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, step, ocfg = lm_train_setup(cfg, n_micro=LM_TRAIN_MICRO)
+    batch = lm_train_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    o_bytes = sum(t.numel() * t.element_size() for t in _tensors([state.mu, state.nu]))
+    losses, secs, ok = [], [], True
+    for i in range(LM_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        m = {k: float(v) for k, v in m.items()}
+        want_lr = float(lm_opt.lr_at(state.step, ocfg))  # the step just taken, i + 1
+        losses.append(m["total"])
+        ok = ok and math.isfinite(m["total"]) and math.isfinite(m["grad_norm"]) and m["lr"] == want_lr
+        log(f"[lm_train {elapsed():.1f}s] {cfg.name} step {i + 1}: loss {m['total']:.4f} gnorm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e} (lr_at {want_lr:.3e}) in {secs[-1]:.3f}s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_step = sum(secs[1:]) / len(secs[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    n_active = cfg.n_params_active[1]
+    flops = 6 * n_active * tokens / s_step
+    wall, busy, n_launch, per_kernel = lm_train_profile(model, state, step, batch)
+    falls = losses[-1] < losses[0]
+    ok = ok and falls
+    log(f"[lm_train {elapsed():.1f}s] check (a) {cfg.name} {cfg.n_layers} layers, remat {cfg.remat}, act "
+        f"{cfg.act_dtype} over fp32 leaves, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in {LM_TRAIN_MICRO} "
+        f"microbatches: {n_params:,} params ({p_bytes / 1e9:.3f} GB fp32), optimizer state "
+        f"{o_bytes / 1e9:.3f} GB, built in {t_build:.3f}s; first step {secs[0]:.3f}s, then {s_step:.4f} "
+        f"s/step, {tokens / s_step:.1f} tokens/s, model FLOP/s 6 N tokens/s = {flops / 1e12:.2f} TFLOP/s "
+        f"(N = {n_active:,}) = {flops / BF16_FLOP_PER_S:.4f} of the dense bf16 peak; peak {peak:.3f} GiB; "
+        f"profiled step {wall:.1f} ms, device busy {busy:.1f} ms = {busy / wall:.3f}, {n_launch} device "
+        f"launches; loss {losses[0]:.4f} -> {losses[-1]:.4f} falls {falls}: {'ok' if ok else 'FAILED'}; {smi}")
+    for name, ms in per_kernel[:8]:
+        log(f"  device {ms:9.2f} ms  {name[:100]}")
+    return ok
+
+
+def lm_leaf_gaps(got: list, want: list, moved: float) -> tuple[float, float]:
+    """(max |got - want| over every leaf, the smallest share of a leaf's
+    elements within 1 % of ``moved``)."""
+    worst, share = 0.0, 1.0
+    for a, b in zip(got, want):
+        d = (a.detach().float().cpu() - b.detach().float().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        share = min(share, float((d <= 0.01 * moved).float().mean()))
+    return worst, share
+
+
+def lm_train_card_vs_cpu(cfg) -> bool:
+    """Check (b): ``cfg`` at act fp32, 2 train steps on the card and on
+    the CPU from the same weights (the card's, copied) on the same batch:
+    loss and grad_norm at each step, and every leaf after the steps."""
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    t0 = time.perf_counter()
+    card, c_state, c_step, ocfg = lm_train_setup(cfg32, steps=2)
+    host = lm_transformer.Transformer(
+        cfg32, lm_base.tree_map(lambda t: t.detach().to("cpu", copy=True), card.param_tree()), trainable=True)
+    h_state = lm_opt.init_opt_state(host.param_tree(), ocfg)
+    h_step = ts.make_train_step(cfg32, ocfg, ts.StepConfig())
+    batch = lm_train_batch(cfg32, LM_TRAIN_CUT_B, LM_TRAIN_CUT_S)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    ok, rel = True, {"loss": 0.0, "grad_norm": 0.0}
+    for _ in range(2):
+        card, c_state, mc = c_step(card, c_state, batch)
+        host, h_state, mh = h_step(host, h_state, hbatch)
+        for k in rel:
+            rel[k] = max(rel[k], abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k])))
+    moved = ocfg.lr * 2
+    worst, share = lm_leaf_gaps(lm_base.tree_leaves(card.param_tree()), lm_base.tree_leaves(host.param_tree()), moved)
+    ok = (rel["loss"] <= LM_TRAIN_LOSS_REL and rel["grad_norm"] <= LM_TRAIN_GNORM_REL
+          and worst <= LM_TRAIN_LEAF_MAX and share >= LM_TRAIN_LEAF_SHARE)
+    log(f"[lm_train {elapsed():.1f}s] check (b) {cfg32.name} ({cfg32.n_layers} layers) act fp32, 2 steps card vs "
+        f"CPU (batch {LM_TRAIN_CUT_B} x {LM_TRAIN_CUT_S}; tf32 {torch.backends.cuda.matmul.allow_tf32}): "
+        f"loss rel {rel['loss']:.3e} (bar {LM_TRAIN_LOSS_REL}), grad_norm rel {rel['grad_norm']:.3e} (bar "
+        f"{LM_TRAIN_GNORM_REL}), leaves max |d| {worst:.3e} (bar {LM_TRAIN_LEAF_MAX}; 2 lr x steps = "
+        f"{2 * moved:.1e}), smallest "
+        f"share within 1 % of lr x steps {share:.6f} (bar {LM_TRAIN_LEAF_SHARE}) in "
+        f"{time.perf_counter() - t0:.2f}s: {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def lm_train_micro(cfg) -> bool:
+    """Check (c): at act fp32 the n_micro = 2 gradient equals the n_micro
+    = 1 gradient, each leaf within LM_TRAIN_MICRO_GAP of its max."""
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    model = lm_train.build_model(cfg32, seed=0)
+    batch = lm_train_batch(cfg32, LM_TRAIN_CUT_B, LM_TRAIN_CUT_S)
+    _, _, g1 = ts.make_grad_fn(cfg32, ts.StepConfig(n_micro=1))(model, batch)
+    _, _, g2 = ts.make_grad_fn(cfg32, ts.StepConfig(n_micro=2))(model, batch)
+    gap = max(float((b - a).abs().max() / a.abs().max().clamp(min=1e-30)) for a, b in zip(g1, g2))
+    ok = gap <= LM_TRAIN_MICRO_GAP
+    log(f"[lm_train {elapsed():.1f}s] check (c) {cfg32.name} ({cfg32.n_layers} layers) act fp32: n_micro 2 vs 1 "
+        f"gradient, worst leaf max |d| / max |g| {gap:.3e} (bar {LM_TRAIN_MICRO_GAP}): {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def lm_train_resume(cfg) -> bool:
+    """Check (d), bf16: 2 steps, ``checkpoint.save`` under build/,
+    ``restore`` into freshly built objects, 2 more steps; the final loss
+    against a straight 4-step run at LM_TRAIN_RESUME_REL (bit equality is
+    logged: CUDA sums some gradients with atomics)."""
+    path = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    batch = lm_train_batch(cfg, LM_TRAIN_CUT_B, LM_TRAIN_CUT_S)
+    model, state, step, _ = lm_train_setup(cfg, steps=4)
+    for _ in range(4):
+        model, state, m = step(model, state, batch)
+    straight = float(m["total"])
+    model, state, step, _ = lm_train_setup(cfg, steps=4)
+    for _ in range(2):
+        model, state, _ = step(model, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saved = lm_ckpt.save(path, lm_ckpt.TrainState(model.param_tree(), state, 2, 2 * LM_TRAIN_CUT_B, 0))
+    t_save = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+    del model, state
+    model, state, step, _ = lm_train_setup(cfg, steps=4, seed=1)  # fresh objects, other weights
+    t0 = time.perf_counter()
+    back = lm_ckpt.restore(path, lm_ckpt.TrainState(model.param_tree(), state, 0, 0, 0))
+    model.load_param_tree(back.params)
+    state = back.opt_state
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    for _ in range(2):
+        model, state, m = step(model, state, batch)
+    resumed = float(m["total"])
+    rel = abs(resumed - straight) / abs(straight)
+    ok = rel <= LM_TRAIN_RESUME_REL and back.step == 2 and int(state.step) == 4
+    shutil.rmtree(path)
+    log(f"[lm_train {elapsed():.1f}s] check (d) {cfg.name} ({cfg.n_layers} layers) {cfg.act_dtype}: resumed loss "
+        f"{resumed!r} vs straight {straight!r}, rel {rel:.3e} (bar {LM_TRAIN_RESUME_REL}), bit-equal "
+        f"{resumed == straight}; checkpoint {n_bytes:,} bytes, save {t_save:.3f}s, restore {t_restore:.3f}s: "
+        f"{'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def lm_train_compressed(cfg) -> bool:
+    """Check (e): with int8 error-feedback compression 4 steps on the cut
+    model, the loss falls."""
+    model, state, step, _ = lm_train_setup(cfg, compress=True, steps=4)
+    batch = lm_train_batch(cfg, LM_TRAIN_CUT_B, LM_TRAIN_CUT_S)
+    losses = []
+    for _ in range(4):
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["total"]))
+    ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    log(f"[lm_train {elapsed():.1f}s] check (e) {cfg.name} ({cfg.n_layers} layers) compressed gradients: "
+        f"losses {[round(x, 4) for x in losses]}: {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def phase_lm_train(smi: str) -> float:
+    """The LM stack's training path on the card through ``launch.train``'s
+    functions, outside inference mode: check (a) qwen1.5-0.5b at full width
+    and depth, then (b)-(e) on its cut to LM_TRAIN_LAYERS layers. The path
+    launches none of the repo's kernels: the counts are set to 0 before it
+    and must read 0 after. Returns the phase's seconds."""
+    log("== lm_train: the LM stack's training path (qwen1.5-0.5b, AdamW, int8 error feedback, checkpoints)")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    ok = [lm_train_full(smi)]
+    torch.cuda.empty_cache()
+    cut = lm_cut(lm_configs.get(LM_ARCH), LM_TRAIN_LAYERS, "lm_train checks (b)-(e)")
+    ok += [lm_train_card_vs_cpu(cut), lm_train_micro(cut), lm_train_resume(cut), lm_train_compressed(cut)]
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[lm_train {elapsed():.1f}s] launch counts of the repo's kernels {json.dumps(counts)}")
+    assert not any(counts.values()), counts
+    assert all(ok), ok
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -2349,11 +2626,13 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] kernels checked")
     lm_s = phase_lm_serve(env["smi"])
     log(f"[{elapsed():.1f}s] lm_serve done in {lm_s:.1f}s")
+    train_s = phase_lm_train(env["smi"])
+    log(f"[{elapsed():.1f}s] lm_train done in {train_s:.1f}s")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx, MAIN_SHARE_S - lm_s)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx, MAIN_SHARE_S - lm_s - train_s)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

@@ -9,7 +9,9 @@ Like the rest of the port they put their tensors on the card unless the
 caller passes ``device="cpu"``. Nothing here imports the JAX package.
 
 ``lm_params`` does the same for the LM stack: the reference's parameter
-pytree (numpy arrays) becomes a ``Transformer`` holding the same weights.
+pytree (numpy arrays) becomes a ``Transformer`` holding the same weights,
+placed for serving or held for training; ``adam_state`` carries the
+reference's optimizer state over beside it.
 """
 from __future__ import annotations
 
@@ -94,28 +96,59 @@ def join_plan(
     )
 
 
-def lm_params(params_np, cfg, device: torch.device | str = "cuda"):
-    """A ``models.transformer.Transformer`` holding the reference's LM
-    parameters: ``params_np`` is the pytree of ``repro.models.base.
-    init_params(key, model_defs(cfg))`` as numpy arrays (anything
-    ``np.asarray`` takes), layer params stacked on the leading "layers"
-    axis; names and shapes must be ``model_defs(cfg)``'s. Weights keep the
-    reference's (d_in, d_out) layout (``x @ w``)."""
+def _lm_tree(params_np, cfg, dev, what: str = "params"):
+    """``params_np`` as fp32 tensors on ``dev`` after the checks that its
+    names and shapes are ``model_defs(cfg)``'s."""
     from repro_torch.models import transformer  # deferred: LM stack
 
-    dev = ops.resolve_device(device)
     want = transformer.model_defs(cfg)
 
     def place(defs, tree, path=""):
         if isinstance(defs, dict):
             if not isinstance(tree, dict) or set(tree) != set(defs):
-                raise ValueError(f"{cfg.name}: params at {path or '/'} have keys "
+                raise ValueError(f"{cfg.name}: {what} at {path or '/'} have keys "
                                  f"{sorted(tree) if isinstance(tree, dict) else type(tree)}, "
                                  f"want {sorted(defs)}")
             return {k: place(defs[k], tree[k], f"{path}/{k}") for k in defs}
         a = np.asarray(tree)
         if a.shape != defs.shape:
-            raise ValueError(f"{cfg.name}: {path} has shape {a.shape}, want {defs.shape}")
+            raise ValueError(f"{cfg.name}: {what} {path} has shape {a.shape}, want {defs.shape}")
         return torch.as_tensor(np.array(a, np.float32), device=dev).to(defs.dtype)
 
-    return transformer.Transformer(cfg, place(want, params_np))
+    return place(want, params_np)
+
+
+def lm_params(params_np, cfg, device: torch.device | str = "cuda", *, trainable: bool = False):
+    """A ``models.transformer.Transformer`` holding the reference's LM
+    parameters: ``params_np`` is the pytree of ``repro.models.base.
+    init_params(key, model_defs(cfg))`` as numpy arrays (anything
+    ``np.asarray`` takes), layer params stacked on the leading "layers"
+    axis; names and shapes must be ``model_defs(cfg)``'s. Weights keep the
+    reference's (d_in, d_out) layout (``x @ w``). ``trainable``: the
+    training holding (each leaf one fp32 parameter, stacks whole), whose
+    ``param_tree()`` is the reference's tree leaf for leaf."""
+    from repro_torch.models import transformer  # deferred: LM stack
+
+    dev = ops.resolve_device(device)
+    return transformer.Transformer(cfg, _lm_tree(params_np, cfg, dev), trainable=trainable)
+
+
+def adam_state(state_np, cfg, device: torch.device | str = "cuda"):
+    """A ``train.optimizer.AdamState`` from the reference's: ``state_np``
+    is its ``AdamState(step, mu, nu, ef_residual)`` (or a 4-tuple in that
+    order) as numpy arrays; ``mu``, ``nu`` and a residual that is not
+    None must have ``model_defs(cfg)``'s names and shapes (as in
+    ``lm_params``). Moments in fp32, the step an int32 scalar."""
+    from repro_torch.train import optimizer  # deferred: LM stack
+
+    dev = ops.resolve_device(device)
+    step, mu, nu, ef = state_np
+    step = np.asarray(step)
+    if step.shape != ():
+        raise ValueError(f"{cfg.name}: opt state step has shape {step.shape}, want ()")
+    return optimizer.AdamState(
+        torch.as_tensor(np.array(step, np.int32), device=dev),
+        _lm_tree(mu, cfg, dev, "mu"),
+        _lm_tree(nu, cfg, dev, "nu"),
+        None if ef is None else _lm_tree(ef, cfg, dev, "ef_residual"),
+    )

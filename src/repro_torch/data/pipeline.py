@@ -1,14 +1,83 @@
-"""Deterministic row stream for the incremental join layer.
+"""Deterministic, shardable, resumable data: the LM token pipeline and the
+row stream of the incremental join layer.
 
-``StreamSource`` of ``repro.data.pipeline``, copied (the port imports
-nothing of the JAX package; it is numpy, as in the reference): row ``i`` is
-a pure function of ``(seed, i)``, so the same seed gives the same rows in
-both packages and under any split into insertion batches. The LM token
-pipeline of that module belongs to the LM stack and is not ported.
+The port of ``repro.data.pipeline`` (numpy, as in the reference; the port
+imports nothing of the JAX package). The design rule: a batch is a PURE
+FUNCTION of (seed, step), a row of (seed, index) — no iterator state — so
+the same seed gives the same arrays in both packages, a restart at step s
+reproduces the batches an uninterrupted run saw (a checkpoint stores only
+s), and any host can recompute any shard of any step. ``host_batch``
+returns one host's slice, ``global_batch`` the whole batch. The
+reference's ``device_batch`` shards the batch over a mesh; it belongs to
+the mesh tooling and is not ported.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from repro_torch.data import synthetic
+from repro_torch.models.config import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    seed: int = 0
+    seq_len: int = 1024
+    global_batch: int = 8
+
+
+class TokenPipeline:
+    """Synthetic LM token stream (swap ``example`` for a real tokenized
+    store — the addressing contract is the whole interface)."""
+
+    def __init__(self, cfg: ArchConfig, pcfg: PipelineConfig):
+        self.cfg = cfg
+        self.pcfg = pcfg
+
+    def example(self, index: int) -> np.ndarray:
+        return synthetic.token_example(
+            self.pcfg.seed, index, self.pcfg.seq_len + 1, self.cfg.vocab
+        )
+
+    def global_batch(self, step: int) -> dict:
+        """Step ``step``'s batch as numpy: int32 ``tokens`` and ``labels``
+        (B, seq_len); vlm: fp32 ``patches`` (B, n_patches, frontend_dim)
+        prepended and their label positions -1; audio: fp32 ``frames``
+        (B, seq_len, frontend_dim) and per-frame labels."""
+        B = self.pcfg.global_batch
+        start = step * B
+        toks = np.stack([self.example(start + i) for i in range(B)])
+        batch = {"tokens": toks[:, :-1].astype(np.int32),
+                 "labels": toks[:, 1:].astype(np.int32)}
+        if self.cfg.family == "vlm":
+            # patch stand-ins ride along; label positions for patches masked
+            n_p = self.cfg.n_patches
+            rngs = np.random.default_rng(np.random.SeedSequence([self.pcfg.seed, step]))
+            batch = {
+                "patches": rngs.normal(size=(B, n_p, self.cfg.frontend_dim)).astype(np.float32),
+                "tokens": batch["tokens"][:, : self.pcfg.seq_len - n_p],
+                "labels": np.concatenate(
+                    [np.full((B, n_p), -1, np.int32),
+                     batch["labels"][:, : self.pcfg.seq_len - n_p]], axis=1),
+            }
+        if self.cfg.family == "audio":
+            rngs = np.random.default_rng(np.random.SeedSequence([self.pcfg.seed, step]))
+            batch = {
+                "frames": rngs.normal(size=(B, self.pcfg.seq_len, self.cfg.frontend_dim)).astype(np.float32),
+                "labels": batch["labels"] % self.cfg.vocab,
+            }
+        return batch
+
+    def host_batch(self, step: int, host_id: int, n_hosts: int) -> dict:
+        g = self.global_batch(step)
+        B = self.pcfg.global_batch
+        if B % n_hosts:
+            raise ValueError(f"global batch {B} does not split over {n_hosts} hosts")
+        lo = host_id * (B // n_hosts)
+        hi = lo + B // n_hosts
+        return {k: v[lo:hi] for k, v in g.items()}
 
 
 class StreamSource:

@@ -9,7 +9,8 @@ and parameterized.
 The join generators of ``repro.data.synthetic``, copied (the port imports
 nothing of the JAX package): the same seed gives the same arrays and
 strings in both packages (the same ``np.random.default_rng`` calls in the
-same order). ``token_example`` belongs to the LM stack and is not ported.
+same order). ``token_example``, the LM token stream's examples, is
+copied too: the same (seed, index) gives the same tokens in both packages.
 """
 from __future__ import annotations
 
@@ -124,3 +125,16 @@ def strings(n: int, vocab: str = "abcdefgh", length: tuple[int, int] = (8, 24),
                 t[j] = vocab[rng.integers(len(vocab))]
         out.append("".join(t))
     return out
+
+
+def token_example(seed: int, index: int, seq_len: int, vocab: int) -> np.ndarray:
+    """Pure function (seed, index) -> token sequence; basis of the resumable
+    pipeline. Markov-ish stream so the LM loss has learnable structure."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, index]))
+    base = rng.integers(0, vocab, size=seq_len)
+    # inject copy structure: second half repeats first half with noise
+    half = seq_len // 2
+    noise = rng.integers(0, vocab, size=half)
+    keep = rng.uniform(size=half) < 0.8
+    base[half : half + half] = np.where(keep, base[:half], noise)[: seq_len - half]
+    return base.astype(np.int32)

@@ -53,6 +53,39 @@ def tree_map_with_path(fn, tree: PyTree, path: tuple[str, ...] = ()) -> PyTree:
     return fn(path, tree)
 
 
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of nested dicts and tuples in ``jax.tree.leaves``' order:
+    a dict's keys sorted, a tuple's (a NamedTuple's) items in order; None
+    holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: PyTree, leaves) -> PyTree:
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def fan_in_of(d: ParamDef) -> int:
     """A weight's input width: the dimension ``x @ w`` contracts, its
     second-to-last (a matrix (d_in, d_out), each of a batch of them: the

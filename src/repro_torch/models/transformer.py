@@ -13,11 +13,22 @@ block body:
 ``model_defs`` is the reference's ParamDef tree (layer params stacked on a
 leading "layers" axis, twice — (groups, per group, ...) — for hybrid and
 ssm), so ``base.init_params`` and ``convert.lm_params`` both give that
-layout. ``Transformer`` holds it for serving: each stack becomes nested
-``nn.ModuleList``s with one entry per layer, and every weight the
-reference casts to the activation dtype at each use is cast once; the
-leaves it reads in fp32 stay fp32 (``serving_dtype``). The functions below
-take the ``Transformer``'s tree (``model.tree``).
+layout. ``Transformer`` holds it in one of two ways:
+
+  serving     each stack becomes nested ``nn.ModuleList``s with one entry
+              per layer, and every weight the reference casts to the
+              activation dtype at each use is cast once; the leaves it
+              reads in fp32 stay fp32 (``serving_dtype``);
+  trainable   each leaf is ONE fp32 ``nn.Parameter`` in the reference's
+              layout, stacks included; the forward takes the per-layer
+              views ``stack[i]`` as it runs (so the gradients land in the
+              stacked leaves, leaf for leaf with the optimizer's state)
+              and casts each weight to the activation dtype at each use.
+              ``cfg.remat`` wraps the layer bodies the reference wraps in
+              ``jax.checkpoint`` in ``torch.utils.checkpoint``.
+
+The functions below take the ``Transformer``'s tree (``model.tree``, or
+for the trainable holding its per-layer views).
 
 Three entry points, matching the reference's shape kinds:
   forward()      full-sequence logits (train / prefill) and the MoE aux loss
@@ -27,12 +38,15 @@ Three entry points, matching the reference's shape kinds:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, layers, moe, ssm, xlstm
+from repro_torch.models import base
 from repro_torch.models.base import ParamDef, PyTree
 from repro_torch.models.config import ArchConfig
 
@@ -174,41 +188,134 @@ def _place(tree: PyTree, dtype_of, path: tuple[str, ...], depth: int) -> nn.Modu
     return node
 
 
+def _hold(tree: PyTree) -> Node:
+    """``tree`` as ``Node``s of trainable fp32 parameters, stacks whole."""
+    node = Node()
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            node.add_module(k, _hold(v))
+        else:
+            node.register_parameter(k, nn.Parameter(v.detach().to(torch.float32)))
+    return node
+
+
+def _as_dict(node: Node) -> dict:
+    """A ``Node`` of parameters as the reference's nested dicts."""
+    out = {k: _as_dict(m) for k, m in node._modules.items()}
+    out.update(node._parameters)
+    return {k: out[k] for k in sorted(out)}
+
+
+def _views(tree: PyTree, depth: int):
+    """``depth`` stacked axes of ``tree`` as nested lists of per-layer
+    views (``stack[i]``: no copy, and the gradient flows to the stack)."""
+    if not depth:
+        return tree
+    n = _first_leaf(tree).shape[0]
+    return [_views(_unstack(tree, i), depth - 1) for i in range(n)]
+
+
 class Transformer(nn.Module):
-    """A model's weights, placed for serving.
+    """A model's weights, placed for serving or held for training.
 
     ``params`` is the reference's layout (``model_defs``: layer params
     stacked on leading axes), from ``base.init_params`` or
-    ``convert.lm_params``; the module holds them on their device, each
-    stack as nested ``nn.ModuleList``s (moe: ``layer0`` and the MoE
-    layers; hybrid: groups of Mamba2 layers and the ``shared`` block; ssm:
-    groups of mLSTM layers and ``slstm_layers``), each leaf in its
-    ``serving_dtype`` (a cast only where it is not held so already)."""
+    ``convert.lm_params``; the module holds them on their device.
 
-    def __init__(self, cfg: ArchConfig, params: PyTree):
+    Serving (the default): each stack as nested ``nn.ModuleList``s (moe:
+    ``layer0`` and the MoE layers; hybrid: groups of Mamba2 layers and the
+    ``shared`` block; ssm: groups of mLSTM layers and ``slstm_layers``),
+    each leaf a frozen parameter in its ``serving_dtype`` (a cast only
+    where it is not held so already).
+
+    ``trainable=True``: each leaf one fp32 ``nn.Parameter`` with
+    ``requires_grad``, stacks whole (``param_tree``); the forward indexes
+    the per-layer views while it runs and honours ``cfg.remat``."""
+
+    def __init__(self, cfg: ArchConfig, params: PyTree, *, trainable: bool = False):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
+        self.trainable = trainable
         defs = model_defs(cfg)
         dtype_of = serving_dtype(cfg)
         self.tree = Node()
+        self._depth = {k: _first_leaf(defs[k]).axes.count("layers") for k in params}
         for k in sorted(params):
-            n_stacked = _first_leaf(defs[k]).axes.count("layers")
-            self.tree.add_module(k, _place(params[k], dtype_of, (k,), n_stacked))
+            if trainable:
+                self.tree.add_module(k, _hold(params[k]))
+            else:
+                self.tree.add_module(k, _place(params[k], dtype_of, (k,), self._depth[k]))
+
+    def param_tree(self) -> dict:
+        """The trainable holding's parameters as the reference's tree
+        (nested dicts, stacked leaves, sorted keys)."""
+        if not self.trainable:
+            raise ValueError("param_tree needs the trainable holding (trainable=True)")
+        return _as_dict(self.tree)
+
+    @torch.no_grad()
+    def load_param_tree(self, params: PyTree) -> None:
+        """Copy ``params`` (the reference's tree, any device and float
+        dtype) into the trainable holding's parameters, leaf for leaf."""
+        want, leaves = _paths(self.param_tree()), base.tree_leaves(params)
+        if len(leaves) != len(want):
+            raise ValueError(f"{len(leaves)} leaves given, the model holds {len(want)}")
+        for (path, p), v in zip(want, leaves):
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)} has shape {tuple(v.shape)}, want {tuple(p.shape)}")
+            p.copy_(v)
+
+    def _params(self):
+        if not self.trainable:
+            return self.tree
+        return {k: _views(v, self._depth[k]) for k, v in self.param_tree().items()}
 
     def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
-        return forward(self.tree, batch, self.cfg, causal_mode=causal_mode, last_only=last_only)
+        return forward(self._params(), batch, self.cfg, causal_mode=causal_mode,
+                       last_only=last_only, remat=self.trainable)
 
     def decode_step(self, token: Tensor, state: PyTree, length: int | Tensor):
-        return decode_step(self.tree, token, state, length, self.cfg)
+        return decode_step(self._params(), token, state, length, self.cfg)
 
     def init_state(self, batch: int, max_len: int) -> PyTree:
         return init_state(self.cfg, batch, max_len, device=self.tree["final_norm"]["scale"].device)
 
 
+def _paths(tree: PyTree, path: tuple[str, ...] = ()) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], (*path, k))]
+    return [(path, tree)]
+
+
 # ---------------------------------------------------------------------------
 # Block bodies
 # ---------------------------------------------------------------------------
+
+
+# The matmuls with no batch dimension, the outputs remat="dots" keeps
+# (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``): every
+# ``x @ w`` reaches aten as ``mm``/``addmm``; the attention einsums and the
+# experts' products are batched (``bmm``) and recomputed.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f: Callable, cfg: ArchConfig, on: bool) -> Callable:
+    """``f`` under ``cfg.remat`` when ``on`` and autograd records:
+    "full" recomputes the whole body in the backward pass, "dots" keeps
+    the unbatched matmul outputs and recomputes the rest, "none" keeps
+    everything."""
+    if not on or cfg.remat == "none" or not torch.is_grad_enabled():
+        return f
+    kw = {"use_reentrant": False, "preserve_rng_state": False}  # the bodies draw no random numbers
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, f, **kw)
 
 
 def _attn_mlp_body(lp, h, cfg, causal_mode):
@@ -226,6 +333,16 @@ def _moe_body(lp, h, aux, cfg, causal_mode):
     h = h + a
     y, aux_l = moe.moe_block(lp["moe"], layers.rmsnorm(lp["mlp_norm"], h), cfg)
     return h + y, aux + aux_l
+
+
+def _mamba_body(lp, h, cfg):
+    y, _ = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg)
+    return h + y
+
+
+def _mlstm_body(lp, h, cfg):
+    y, _ = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg)
+    return h + y
 
 
 # ---------------------------------------------------------------------------
@@ -252,34 +369,40 @@ def forward(
     *,
     causal_mode: str = "blocklist",
     last_only: bool = False,
+    remat: bool = False,
 ) -> tuple[Tensor, Tensor]:
     """Full-sequence forward. Returns (logits (B, S, vocab), aux_loss: the
     MoE layers' load-balance losses summed, 0 for the other families).
 
     ``last_only`` slices the hidden state to the final position BEFORE the
     unembed — serving prefill emits (B, 1, vocab) and the (B, S, vocab)
-    logits tensor never exists."""
+    logits tensor never exists. ``remat``: wrap the bodies the reference
+    wraps (every layer of a dense body, every MoE layer, every Mamba2 and
+    mLSTM layer; not layer 0, the shared block or sLSTM) as ``cfg.remat``
+    says, while autograd records."""
     h = embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in DENSE_BODY:
+        body = _remat(_attn_mlp_body, cfg, remat)
         for lp in params["layers"]:
-            h = _attn_mlp_body(lp, h, cfg, causal_mode)
+            h = body(lp, h, cfg, causal_mode)
     elif cfg.family == "moe":
         if cfg.first_layer_dense:
             h = _attn_mlp_body(params["layer0"], h, cfg, causal_mode)
+        body = _remat(_moe_body, cfg, remat)
         for lp in params["layers"]:
-            h, aux = _moe_body(lp, h, aux, cfg, causal_mode)
+            h, aux = body(lp, h, aux, cfg, causal_mode)
     elif cfg.family == "hybrid":
+        body = _remat(_mamba_body, cfg, remat)
         for glp in params["layers"]:
             for lp in glp:
-                y, _ = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg)
-                h = h + y
+                h = body(lp, h, cfg)
             h = _attn_mlp_body(params["shared"], h, cfg, causal_mode)
     else:  # ssm
+        body = _remat(_mlstm_body, cfg, remat)
         for glp, slp in zip(params["layers"], params["slstm_layers"]):
             for lp in glp:
-                y, _ = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg)
-                h = h + y
+                h = body(lp, h, cfg)
             y, _ = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg)
             h = h + y
     if last_only:

@@ -1,2 +1,2 @@
-"""Step functions of the serving path (the port of ``repro.train``)."""
+"""Step functions, the optimizer and checkpoints (the port of ``repro.train``)."""
 from repro_torch.train import train_step  # noqa: F401

@@ -1,14 +1,23 @@
-"""Loss + serve step factories, forward only.
+"""Loss + train/serve step factories.
 
-The port of the forward half of ``repro.train.train_step``: the serve and
-prefill steps, the masked cross-entropy and the eval step over it. The step
-functions take a ``transformer.Transformer`` where the reference passes its
-params pytree. ``make_train_step`` (gradients, microbatching, the
-optimizer) waits for the training slice (ROADMAP §1 item 5).
+The port of ``repro.train.train_step``. The step functions take a
+``transformer.Transformer`` where the reference passes its params pytree:
+the training steps a trainable holding (``Transformer(cfg, params,
+trainable=True)``), the serve and prefill steps either holding.
+
+``make_train_step`` returns a (model, opt_state, batch) -> (model,
+opt_state, metrics) function with microbatched gradient accumulation: the
+global batch is split into ``n_micro`` chunks run one after another, so
+live activations stay at one microbatch whatever the global batch; their
+gradients are averaged in fp32 (each divided by ``n_micro`` before it is
+added, the reference's order). As in the reference, with ``n_micro > 1``
+the metrics report ``aux`` = 0 and ``n_tokens`` = 0, and ``loss`` is the
+microbatches' mean total.
 
 Losses:
   decoder families — next-token CE (labels shifted inside), label -1 masks
   encoder (audio)  — per-frame CE, no shift
+MoE aux (load-balance) loss is added with weight ``aux_weight``.
 """
 from __future__ import annotations
 
@@ -17,18 +26,19 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import base
 from repro_torch.models.config import ArchConfig
+from repro_torch.train import optimizer as opt_lib
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The reference's step settings that a forward step reads
-    (``n_micro`` and ``grad_dtype`` come with the training slice)."""
-
+    n_micro: int = 1
     aux_weight: float = 0.01
     causal_mode: str = "blocklist"
+    grad_dtype: str = "float32"  # declared by the reference, read by neither package
 
 
 def cross_entropy(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, Tensor]:
@@ -58,6 +68,69 @@ def make_loss_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
         return total, {"loss": loss, "aux": aux, "n_tokens": n_tok}
 
     return loss_fn
+
+
+def _grads(loss_fn: Callable, model, batch: dict) -> tuple[Tensor, dict, list]:
+    """(total, metrics, the gradient of each leaf of ``model.param_tree()``
+    in tree order; zeros where the loss does not reach a leaf, as
+    ``jax.grad`` gives)."""
+    leaves = base.tree_leaves(model.param_tree())
+    with torch.enable_grad():
+        total, metrics = loss_fn(model, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_grad_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
+    """(model, batch) -> (total, metrics, grads): the gradient half of the
+    train step, ``grads`` a list in ``model.param_tree()`` leaf order.
+    ``n_micro > 1``: the microbatches' gradients averaged in fp32, each
+    divided by ``n_micro`` before it is added (the reference's scan), and
+    the metrics ``loss`` = the mean total, ``aux`` = 0, ``n_tokens`` = 0
+    (the reference's report)."""
+    loss_fn = make_loss_fn(cfg, scfg)
+    n_micro = scfg.n_micro
+
+    def grad_fn(model, batch: dict):
+        if n_micro == 1:
+            return _grads(loss_fn, model, batch)
+        B = next(iter(batch.values())).shape[0]
+        if B % n_micro:
+            raise ValueError(f"global batch {B} does not split into {n_micro} microbatches")
+        mb = B // n_micro
+        grads, total = None, None
+        for i in range(n_micro):
+            micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
+            t, _, g = _grads(loss_fn, model, micro)
+            if grads is None:
+                grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in g]
+                total = torch.zeros((), dtype=torch.float32, device=t.device)
+            for a, b in zip(grads, g):
+                a.add_(b.to(torch.float32) / n_micro)
+            del g
+            total = total + t / n_micro
+        metrics = {"loss": total,
+                   "aux": torch.zeros((), dtype=torch.float32, device=total.device),
+                   "n_tokens": torch.zeros((), dtype=torch.int32, device=total.device)}
+        return total, metrics, grads
+
+    return grad_fn
+
+
+def make_train_step(
+    cfg: ArchConfig, opt_cfg: opt_lib.OptConfig, scfg: StepConfig
+) -> Callable:
+    grad_fn = make_grad_fn(cfg, scfg)
+
+    def train_step(model, opt_state: opt_lib.AdamState, batch: dict):
+        total, metrics, grads = grad_fn(model, batch)
+        params = model.param_tree()
+        _, opt_state, om = opt_lib.apply_updates(
+            params, base.tree_unflatten(params, grads), opt_state, opt_cfg)
+        return model, opt_state, dict(metrics, **om, total=total)
+
+    return train_step
 
 
 def make_eval_step(cfg: ArchConfig, scfg: StepConfig | None = None) -> Callable:
