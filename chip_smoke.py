@@ -80,6 +80,24 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    equality logged; bytes, save and restore seconds); (e)
                    4 steps with int8 error-feedback compression falling. Its
                    seconds come out of the main path's share too;
+  lm_mesh        — the mesh layer (launch.mesh, ShardedTransformer, the
+                   expert-parallel MoE) in an NCCL world of 1 rank (file
+                   rendezvous in a temporary directory, destroyed in a
+                   finally; no kernel of the repo, the launch counts must
+                   read 0): (a) qwen1.5-0.5b at full width and depth on a
+                   (1, 1) ("data", "model") mesh, parameters placed by
+                   LOGICAL_RULES, 2 steps of lm_train's batch through the
+                   mesh step and the same 2 from a copy of the weights
+                   through the single-process step: loss and grad_norm
+                   within the stated tolerances (bit equality logged),
+                   s/step of each and the collectives per step; (b)
+                   deepseek-moe-16b's MoE block at full width (64 experts,
+                   top-6, 2 shared, expert d_ff 1408) at fp32: the
+                   expert-parallel dispatch of 4 virtual ranks (16 experts
+                   each) summed against the local dispatch, and in bf16
+                   moe_block under the (1, 1) mesh equal to the local path
+                   bit for bit. Its seconds come out of the main path's
+                   share too;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -143,7 +161,7 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
 A full run takes about 14-16 minutes on an H100 (build ~30 s, lm_serve ~3 min,
-lm_train ~50 s).
+lm_train ~50 s, lm_mesh under a minute).
 """
 from __future__ import annotations
 
@@ -155,6 +173,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -173,9 +192,11 @@ from repro_torch.kernels import histogram as _histogram  # noqa: E402
 from repro_torch.kernels import mapassign as _mapassign  # noqa: E402
 from repro_torch.kernels import pairdist as _pairdist  # noqa: E402
 from repro_torch.data import pipeline as lm_pipeline  # noqa: E402
+from repro_torch.launch import mesh as lm_mesh_lib  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import base as lm_base  # noqa: E402
+from repro_torch.models import collectives as lm_collectives  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
@@ -1372,7 +1393,7 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
 def phase_main_path(report: dict, z: torch.Tensor, ptx: list,
                     share: float) -> tuple[dict, dict, torch.Tensor, float, object]:
     """The two main-path joins over the first N_ROWS rows of ``z``, fitted
-    into ``share`` seconds (MAIN_SHARE_S less the lm_serve and lm_train phases'). The
+    into ``share`` seconds (MAIN_SHARE_S less the lm_serve, lm_train and lm_mesh phases'). The
     probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
     launch counts of both joins, the compact join's rows, δ and its
@@ -2617,6 +2638,165 @@ def phase_lm_train(smi: str) -> float:
     return time.perf_counter() - t0
 
 
+LM_MESH_STEPS = 4  # check (a): steps through each path, taken in turns
+LM_MESH_LOSS_REL = 1e-6  # (a): |loss mesh - loss single| / |loss single| at each step; on a
+#   (1, 1) mesh the two paths make the same products in the same order
+LM_MESH_GNORM_REL = 1e-6  # (a): the same for grad_norm
+LM_MESH_MOE_ARCH = "deepseek-moe-16b"  # check (b): its MoE block at full width
+LM_MESH_MOE_B, LM_MESH_MOE_S = 4, 2048  # (b): tokens of one group (group_size 2048)
+LM_MESH_EP_RANKS = 4  # (b): virtual ranks, 16 experts each
+LM_MESH_EP_REL = 1e-5  # (b): max |sum of partials - local| / max |local| at fp32 (each token's
+#   six choices are added per rank and the ranks' partials then, another order)
+
+
+def lm_mesh_steps(mesh, smi: str) -> bool:
+    """Check (a): lm_train's model and batch (qwen1.5-0.5b at full width
+    and depth, bf16 over fp32 leaves, remat full, 4 x 4,096 tokens in 2
+    microbatches), LM_MESH_STEPS steps through the mesh path
+    (ShardedTransformer on ``mesh``, make_mesh_train_step, device_batch)
+    and the same steps from a copy of the weights through the
+    single-process path, the two taken in turns (mesh, single; single,
+    mesh; ...): loss and grad_norm at each step, s/step of each after the
+    first, the mesh path's collectives per step, then one profiled step of
+    each (device busy, launches, time by kernel)."""
+    cfg = lm_configs.get(LM_ARCH)
+    ocfg = lm_opt.OptConfig(total_steps=LM_TRAIN_STEPS, warmup_steps=max(LM_TRAIN_STEPS // 20, 1))
+    scfg = ts.StepConfig(n_micro=LM_TRAIN_MICRO)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    single = lm_train.build_model(cfg, seed=0)
+    sharded = lm_transformer.ShardedTransformer(cfg, single.param_tree(), mesh)  # a copy of each leaf
+    pipe = lm_pipeline.TokenPipeline(cfg, lm_pipeline.PipelineConfig(seed=0, seq_len=LM_TRAIN_SEQ,
+                                                                     global_batch=LM_TRAIN_BATCH))
+    runs = {
+        "mesh": [sharded, lm_opt.init_opt_state(sharded.param_tree(), ocfg),
+                 ts.make_mesh_train_step(cfg, ocfg, scfg), pipe.device_batch(0, mesh)],
+        "single": [single, lm_opt.init_opt_state(single.param_tree(), ocfg),
+                   ts.make_train_step(cfg, ocfg, scfg), lm_train_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)],
+    }
+    metrics = {k: [] for k in runs}
+    secs = {k: [] for k in runs}
+    colls = []
+    for i in range(LM_MESH_STEPS):
+        for name in (("mesh", "single") if i % 2 == 0 else ("single", "mesh")):
+            model, state, step_fn, batch = runs[name]
+            lm_collectives.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step_fn(model, state, batch)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            runs[name][:2] = [model, state]
+            metrics[name].append({k: float(v) for k, v in m.items()})
+            if name == "mesh":
+                colls.append(lm_collectives.collective_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mm, sm = metrics["mesh"], metrics["single"]
+    ok, bit = True, True
+    for i in range(LM_MESH_STEPS):
+        rel_l = abs(mm[i]["total"] - sm[i]["total"]) / abs(sm[i]["total"])
+        rel_g = abs(mm[i]["grad_norm"] - sm[i]["grad_norm"]) / abs(sm[i]["grad_norm"])
+        ok = ok and rel_l <= LM_MESH_LOSS_REL and rel_g <= LM_MESH_GNORM_REL and math.isfinite(mm[i]["total"])
+        bit = bit and mm[i]["total"] == sm[i]["total"] and mm[i]["grad_norm"] == sm[i]["grad_norm"]
+        log(f"[lm_mesh {elapsed():.1f}s] check (a) step {i + 1}: mesh loss {mm[i]['total']!r} gnorm "
+            f"{mm[i]['grad_norm']!r} in {secs['mesh'][i]:.4f}s; single loss {sm[i]['total']!r} gnorm "
+            f"{sm[i]['grad_norm']!r} in {secs['single'][i]:.4f}s; loss rel {rel_l:.3e} (bar {LM_MESH_LOSS_REL}), "
+            f"grad_norm rel {rel_g:.3e} (bar {LM_MESH_GNORM_REL}); mesh collectives {json.dumps(colls[i])}")
+    s_step = {k: sum(v[1:]) / len(v[1:]) for k, v in secs.items()}
+    log(f"[lm_mesh {elapsed():.1f}s] check (a) {cfg.name} {cfg.n_layers} layers on a (1, 1) (data, model) mesh, "
+        f"LOGICAL_RULES, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in {LM_TRAIN_MICRO} microbatches: s/step after "
+        f"the first: mesh {s_step['mesh']:.4f}, single {s_step['single']:.4f}; collectives per step "
+        f"{json.dumps(colls[-1])}; bit-equal {bit}; peak {peak:.3f} GiB: {'ok' if ok else 'FAILED'}; {smi}")
+    for name, (model, state, step_fn, batch) in runs.items():
+        wall, busy, n_launch, per_kernel = lm_train_profile(model, state, step_fn, batch)
+        log(f"[lm_mesh {elapsed():.1f}s] profiled {name} step: {wall:.1f} ms, device busy {busy:.1f} ms = "
+            f"{busy / wall:.3f}, {n_launch} device launches")
+        for kname, ms in per_kernel[:6]:
+            log(f"  device {ms:9.2f} ms  {kname[:100]}")
+    return ok
+
+
+def lm_mesh_ep(mesh) -> bool:
+    """Check (b): deepseek-moe-16b's MoE block at full width on the card.
+    At fp32 (weights from a seeded generator), the expert-parallel
+    dispatch of LM_MESH_EP_RANKS virtual ranks (each its slice of the
+    experts, e_offset 0, 16, 32, 48) summed, plus the shared experts,
+    against the local dispatch; then, the weights in bf16, moe_block under
+    the (1, 1) mesh (the expert-parallel branch: one all-reduce over
+    "model", the aux loss averaged over "data") against the local path,
+    bit for bit."""
+    cfg = lm_configs.get(LM_MESH_MOE_ARCH)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm_base.init_params(gen, lm_moe.moe_defs(cfg32), torch.float32)
+    x = torch.randn((LM_MESH_MOE_B, LM_MESH_MOE_S, cfg.d_model), generator=gen, device="cuda")
+    n_local = cfg.n_experts // LM_MESH_EP_RANKS
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want, aux = lm_moe._dispatch_group(params, x, cfg32)
+        torch.cuda.synchronize()
+        t_local = time.perf_counter() - t0
+        total = lm_layers.mlp(params["shared"], x, "swiglu")
+        same_aux = True  # routing is computed in full on every rank
+        t0 = time.perf_counter()
+        for r in range(LM_MESH_EP_RANKS):
+            off = r * n_local
+            sl = {"router": params["router"], **{k: params[k][off : off + n_local] for k in ("gate", "up", "down")}}
+            part, aux_r = lm_moe._dispatch_group_ep(sl, x, cfg32, off, n_local)
+            total = total + part
+            same_aux = same_aux and torch.equal(aux_r, aux)
+        torch.cuda.synchronize()
+        t_ep = time.perf_counter() - t0
+        rel = float((total - want).abs().max() / want.abs().max())
+        routed_bytes = sum(params[k].numel() for k in ("gate", "up", "down")) * 2
+        p16 = lm_base.tree_map(lambda t: t.to(torch.bfloat16), params)
+        del params
+        x16 = x.to(torch.bfloat16)
+        y_local, a_local = lm_moe.moe_block(p16, x16, cfg)
+        lm_collectives.reset_collective_counts()
+        with lm_base.use_mesh(mesh):
+            y_mesh, a_mesh = lm_moe.moe_block(p16, x16, cfg)
+        colls = lm_collectives.collective_counts()
+        bit = torch.equal(y_mesh, y_local) and torch.equal(a_mesh, a_local)
+    ok = rel <= LM_MESH_EP_REL and same_aux and bit and colls["all_reduce"] == 2
+    log(f"[lm_mesh {elapsed():.1f}s] check (b) {cfg.name} MoE block at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, {cfg.n_shared_experts} shared, expert d_ff {cfg.d_ff_expert}; "
+        f"routed weights {routed_bytes / 1e9:.3f} GB in bf16), {LM_MESH_MOE_B} x {LM_MESH_MOE_S} tokens: fp32 sum "
+        f"of {LM_MESH_EP_RANKS} ranks' partials vs _dispatch_group max |d| / max |y| {rel:.3e} (bar "
+        f"{LM_MESH_EP_REL}; aux equal {same_aux}; local {t_local:.4f}s, partials {t_ep:.4f}s); bf16 moe_block under the (1, 1) mesh "
+        f"equal to the local path bit for bit: {bit} (collectives {json.dumps(colls)}): {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def phase_lm_mesh(smi: str) -> float:
+    """The mesh layer on the card in an NCCL world of 1 rank (file
+    rendezvous in a temporary directory, destroyed in a finally): checks
+    (a) and (b) on a (1, 1) ("data", "model") mesh, then (c) the repo's
+    kernels launched 0 times. Returns the phase's seconds."""
+    import torch.distributed as dist
+
+    log("== lm_mesh: the mesh layer (DP x TP step, expert-parallel MoE) in an NCCL world of 1")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv", world_size=1, rank=0,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = lm_mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+            ok = [lm_mesh_steps(mesh, smi)]
+            torch.cuda.empty_cache()
+            ok.append(lm_mesh_ep(mesh))
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[lm_mesh {elapsed():.1f}s] check (c) launch counts of the repo's kernels {json.dumps(counts)} "
+        "(the mesh path runs none of the five)")
+    assert not any(counts.values()), counts
+    assert all(ok), ok
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -2628,11 +2808,14 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] lm_serve done in {lm_s:.1f}s")
     train_s = phase_lm_train(env["smi"])
     log(f"[{elapsed():.1f}s] lm_train done in {train_s:.1f}s")
+    mesh_s = phase_lm_mesh(env["smi"])
+    log(f"[{elapsed():.1f}s] lm_mesh done in {mesh_s:.1f}s")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx, MAIN_SHARE_S - lm_s - train_s)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx,
+                                                                     MAIN_SHARE_S - lm_s - train_s - mesh_s)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

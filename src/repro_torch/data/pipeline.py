@@ -7,9 +7,9 @@ FUNCTION of (seed, step), a row of (seed, index) — no iterator state — so
 the same seed gives the same arrays in both packages, a restart at step s
 reproduces the batches an uninterrupted run saw (a checkpoint stores only
 s), and any host can recompute any shard of any step. ``host_batch``
-returns one host's slice, ``global_batch`` the whole batch. The
-reference's ``device_batch`` shards the batch over a mesh; it belongs to
-the mesh tooling and is not ported.
+returns one host's slice, ``global_batch`` the whole batch, and
+``device_batch`` the batch sharded over a device mesh: each rank builds
+its own rows (no collective) as DTensors of the global batch.
 """
 from __future__ import annotations
 
@@ -78,6 +78,38 @@ class TokenPipeline:
         lo = host_id * (B // n_hosts)
         hi = lo + B // n_hosts
         return {k: v[lo:hi] for k, v in g.items()}
+
+    def device_batch(self, step: int, mesh, batch_axes=("pod", "data")) -> dict:
+        """Step ``step``'s global batch as DTensors on ``mesh`` (a
+        ``DeviceMesh``), dim 0 sharded over the batch axes the mesh has
+        (major to minor) and replicated over the others. Each rank holds
+        exactly ``host_batch``'s rows for its index along those axes
+        (``.to_local()``), on the mesh's device."""
+        import torch
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models import base
+
+        sizes = base.axis_sizes(mesh)
+        axes = tuple(a for a in batch_axes if a in sizes)
+        coord = dict(zip(sizes, mesh.get_coordinate()))
+        host_id, n_hosts = 0, 1
+        for a in axes:
+            host_id, n_hosts = host_id * sizes[a] + coord[a], n_hosts * sizes[a]
+        spec = ((axes if len(axes) > 1 else axes[0]),) if axes else ()
+        placements = base.placements_for(spec, mesh)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+        B = self.pcfg.global_batch
+        if B % n_hosts:
+            raise ValueError(f"global batch {B} does not split over {n_hosts} ranks")
+        lo = host_id * (B // n_hosts)
+        out = {}
+        for k, v in self.global_batch(step).items():
+            local = torch.as_tensor(v[lo : lo + B // n_hosts], device=device)
+            out[k] = DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(v.shape),
+                                        stride=torch.empty(v.shape, device="meta").stride())
+        return out
 
 
 class StreamSource:

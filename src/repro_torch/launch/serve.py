@@ -4,10 +4,11 @@ The port of ``repro.launch.serve``; both subcommands run on the card unless
 ``--device cpu`` is passed.
 
 ``range`` — the query-serving path of this repo (docs/SERVING.md): build a
-persistent ``core.index.MetricIndex`` once, pin its per-slot V buffers on a
-``torch.distributed`` group of world size 1 (NCCL on the card, gloo on the
-CPU; file rendezvous in a temporary directory), then serve δ-range query
-batches through the distributed serve stage. Prints build time, per-batch
+persistent ``core.index.MetricIndex`` once, pin its per-slot V buffers over
+the "data" axis of ``launch.mesh.make_host_mesh`` (its process group; the
+world the caller initialised, else one of world size 1: NCCL on the card,
+gloo on the CPU, file rendezvous in a temporary directory), then serve
+δ-range query batches through the distributed serve stage. Prints build time, per-batch
 latency, QPS/p50/p99, and checks one batch against the brute-force oracle.
 
     PYTHONPATH=src python -m repro_torch.launch.serve range \\
@@ -58,6 +59,7 @@ def serve_range(args) -> None:
     from repro_torch.core import index as index_lib
     from repro_torch.core import spjoin
     from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_lib
 
     dev = ops.resolve_device(args.device)
     # queries drawn near the indexed clusters (rs_mixture shares centers) so
@@ -75,15 +77,18 @@ def serve_range(args) -> None:
           f"in {time.perf_counter() - t0:.2f}s")
 
     with tempfile.TemporaryDirectory() as tmp:
-        kw = {}
-        if dev.type == "cuda":
-            kw["device_id"] = torch.device("cuda", dev.index if dev.index is not None
-                                           else torch.cuda.current_device())
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                init_method=f"file://{tmp}/rdzv", world_size=1, rank=0, **kw)
+        own = not dist.is_initialized()
+        if own:
+            kw = {}
+            if dev.type == "cuda":
+                kw["device_id"] = torch.device("cuda", dev.index if dev.index is not None
+                                               else torch.cuda.current_device())
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                    init_method=f"file://{tmp}/rdzv", world_size=1, rank=0, **kw)
         try:
-            didx = idx.to_distributed(dist.group.WORLD)
-            print(f"pinned V buffers on {dist.get_world_size()} rank(s); serving")
+            mesh = mesh_lib.make_host_mesh(axis="data", device=dev.type)
+            didx = idx.to_distributed(mesh.get_group("data"))
+            print(f"pinned V buffers on {mesh.size()} rank(s); serving")
             batches = [queries[i : i + args.batch]
                        for i in range(0, args.queries, args.batch)]
             didx.query_batch(batches[0])  # warm-up
@@ -99,7 +104,8 @@ def serve_range(args) -> None:
                           f"{pairs.shape[0]} pairs, {lat[-1] * 1e3:.1f} ms")
             got = didx.query_batch(batches[0])
         finally:
-            dist.destroy_process_group()
+            if own:
+                dist.destroy_process_group()
 
     lat_ms = np.asarray(lat) * 1e3
     n_q = sum(b.shape[0] for b in batches)

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import base, layers
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
@@ -151,9 +151,12 @@ def chunked_attention(
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                   device: torch.device | str = "cuda") -> dict:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    # Shard KV heads over the model axis when they divide; otherwise shard
+    # the sequence (MQA).
+    axes = ("act_batch", None, "act_model", None)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": base.shard_act(torch.zeros(shape, dtype=dtype, device=device), axes),
+        "v": base.shard_act(torch.zeros(shape, dtype=dtype, device=device), axes),
     }
 
 

@@ -9,10 +9,16 @@ its (B, C, d) slice of the dispatch buffer — skew costs padding, not
 stragglers. Both llama4-scout (16e top-1 + shared) and deepseek-moe (64e
 top-6 + 2 shared, fine-grained) are instances of this one module.
 
-The reference's expert-parallel path (``_dispatch_group_ep`` and
-``moe_block``'s mesh branch: experts sharded over a "model" axis, one psum
-to combine) has no single-card meaning; it is ported with the mesh tooling
-(ROADMAP §1).
+Expert parallelism (the reference's ``_dispatch_group_ep`` and
+``moe_block``'s ``shard_map`` branch): under a mesh whose "model" axis
+divides ``n_experts`` (and whose activation rules replicate activations
+over "model"), each rank routes every token of its batch rows, computes
+only its ``n_experts / n_model`` experts (non-local assignments go to the
+dropped bucket), and one all-reduce SUM over the "model" group combines the
+partial outputs; the load-balance loss is averaged over the batch axes.
+The reference's ``compat.shard_map`` has no torch counterpart: the branch
+calls the mesh's process groups itself (``collectives``). Without a mesh
+the path is the single-card one, op for op.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import base, collectives, layers
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
@@ -56,6 +62,21 @@ def top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
 
 def _dispatch_group(params, xg: Tensor, cfg) -> tuple[Tensor, Tensor]:
     """One token group. xg: (B, gs, d) -> (y (B, gs, d), aux_loss scalar)."""
+    y, aux = _dispatch_group_ep(params, xg, cfg, 0, cfg.n_experts)
+    if cfg.n_shared_experts:
+        y = y + layers.mlp(params["shared"], xg, "swiglu")
+    return y, aux
+
+
+def _dispatch_group_ep(params, xg: Tensor, cfg, e_offset: int, n_local: int) -> tuple[Tensor, Tensor]:
+    """One token group through experts [e_offset, e_offset + n_local) only
+    (``params``' gate/up/down hold those ``n_local`` experts): routing is
+    computed in full, assignments to other experts go to the dropped
+    bucket with those past capacity, and the output is this slice's
+    partial combine (no shared experts). Summed over a partition of the
+    experts it is ``_dispatch_group``'s routed output; with
+    ``(0, n_experts)`` it is that output op for op.
+    xg: (B, gs, d) -> (y (B, gs, d), aux_loss scalar)."""
     B, gs, d = xg.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(gs, cfg)
@@ -75,55 +96,114 @@ def _dispatch_group(params, xg: Tensor, cfg) -> tuple[Tensor, Tensor]:
     rank = torch.cumsum(F.one_hot(flat_e, E), dim=1) - 1  # (B, T', E)
     rank_of = rank.gather(2, flat_e[..., None])[..., 0]  # (B, T')
     keep = rank_of < C  # dropped assignments beyond capacity
-    ee = torch.where(keep, flat_e, E)  # row E collects the drops, then goes
+    if n_local != E:
+        keep = keep & (flat_e >= e_offset) & (flat_e < e_offset + n_local)
+    # row n_local collects the drops (and the other ranks' assignments), then goes
+    ee = torch.where(keep, flat_e - e_offset if e_offset else flat_e, n_local)
     cc = torch.clamp(rank_of, 0, C - 1)
 
     # ---- dispatch: each kept assignment copies its token into its slot ----
     tok = torch.arange(gs, device=xg.device).repeat_interleave(k)  # (T',)
-    slot = (torch.arange(B, device=xg.device)[:, None] * (E + 1) + ee) * C + cc  # (B, T')
-    buf = torch.zeros((B * (E + 1) * C, d), dtype=xg.dtype, device=xg.device)
+    slot = (torch.arange(B, device=xg.device)[:, None] * (n_local + 1) + ee) * C + cc  # (B, T')
+    buf = torch.zeros((B * (n_local + 1) * C, d), dtype=xg.dtype, device=xg.device)
     buf.index_add_(0, slot.reshape(-1), xg[:, tok].reshape(B * gs * k, d))
-    buf = buf.view(B, E + 1, C, d)[:, :E]  # (B, E, C, d)
+    buf = buf.view(B, n_local + 1, C, d)[:, :n_local]  # (B, n_local, C, d)
+    buf = base.shard_act(buf, ("act_batch", "act_model", None, None))
 
     # ---- expert FFN: one batched product per expert -----------------------
-    xe = buf.transpose(0, 1).reshape(E, B * C, d)
+    xe = buf.transpose(0, 1).reshape(n_local, B * C, d)
     g = torch.bmm(xe, params["gate"].to(xe.dtype))
     u = torch.bmm(xe, params["up"].to(xe.dtype))
-    o = torch.bmm(F.silu(g) * u, params["down"].to(xe.dtype))  # (E, B*C, d)
-    o = o.view(E, B, C, d).transpose(0, 1)  # (B, E, C, d)
+    o = torch.bmm(F.silu(g) * u, params["down"].to(xe.dtype))  # (n_local, B*C, d)
+    o = o.view(n_local, B, C, d).transpose(0, 1)  # (B, n_local, C, d)
+    o = base.shard_act(o, ("act_batch", "act_model", None, None))
 
     # ---- combine: weighted sum back in token order ------------------------
     # The reference scatter-adds the k weighted rows of each token in
     # assignment order in the output dtype; summing choice by choice keeps
     # that order (and each rounding) without an atomic scatter.
     bi = torch.arange(B, device=xg.device)[:, None]
-    gathered = o[bi, torch.clamp(ee, max=E - 1), cc]  # (B, T', d)
-    gathered = gathered.masked_fill((ee == E)[..., None], 0)  # the dropped contribute 0
+    gathered = o[bi, torch.clamp(ee, max=n_local - 1), cc]  # (B, T', d)
+    gathered = gathered.masked_fill((ee == n_local)[..., None], 0)  # the dropped contribute 0
     part = (gathered * w.reshape(B, gs * k, 1).to(o.dtype)).view(B, gs, k, d)
     y = torch.zeros((B, gs, d), dtype=o.dtype, device=o.device)
     for j in range(k):
         y = y + part[:, :, j]
-
-    if cfg.n_shared_experts:
-        y = y + layers.mlp(params["shared"], xg, "swiglu")
     return y.to(xg.dtype), aux
 
 
-def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Tensor, Tensor]:
-    """MoE FFN over (B, S, d). Returns (y, aux_loss): the groups of
-    ``min(group_size, S)`` tokens are dispatched one after another and
-    their aux losses averaged."""
+def _moe_groups(params, x: Tensor, cfg, group_size: int, dispatch_fn) -> tuple[Tensor, Tensor]:
+    """``dispatch_fn`` over the groups of ``min(group_size, S)`` tokens one
+    after another; their aux losses averaged."""
     B, S, d = x.shape
     gs = min(group_size, S)
     assert S % gs == 0, (S, gs)
     nG = S // gs
     if nG == 1:
-        return _dispatch_group(params, x, cfg)
+        return dispatch_fn(params, x, cfg)
     xr = x.reshape(B, nG, gs, d)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ys = []
     for g in range(nG):
-        y, a = _dispatch_group(params, xr[:, g], cfg)
+        y, a = dispatch_fn(params, xr[:, g], cfg)
         aux = aux + a
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(B, S, d), aux / nG
+
+
+def _ep_model_size(cfg) -> int | None:
+    """The "model" axis' size when ``moe_block`` takes the expert-parallel
+    branch: a current mesh with a "model" axis that divides ``n_experts``
+    and activation rules that replicate activations over it (under the
+    FSDP profile "model" carries batch, and the local path runs)."""
+    mesh = base.current_mesh()
+    if mesh is None or base.current_act_rules().get("act_model") is None:
+        return None
+    n_model = base.axis_sizes(mesh).get("model")
+    if n_model is None or cfg.n_experts % n_model or cfg.n_experts < n_model:
+        return None
+    return n_model
+
+
+def _local_experts(w: Tensor, e_offset: int, n_local: int) -> Tensor:
+    """This rank's experts of a routed weight held whole or as its shard."""
+    return w if w.shape[0] == n_local else w[e_offset : e_offset + n_local]
+
+
+def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Tensor, Tensor]:
+    """MoE FFN over (B, S, d). Returns (y, aux_loss): the groups of
+    ``min(group_size, S)`` tokens are dispatched one after another and
+    their aux losses averaged.
+
+    Under a mesh (``base.use_mesh``) whose "model" axis divides
+    ``n_experts``, the expert-parallel branch: ``x`` is this rank's batch
+    rows (replicated over "model"), the rank dispatches to its experts
+    only, one all-reduce SUM over "model" combines the partial outputs,
+    the aux loss is averaged over the batch axes, and the shared experts
+    run on ``x`` after the combine. Under a mesh without that axis the
+    local path runs on the rank's rows and the aux loss is averaged over
+    the batch axes too."""
+    mesh = base.current_mesh()
+    n_model = _ep_model_size(cfg)
+    if n_model is None:
+        y, aux = _moe_groups(params, x, cfg, group_size, _dispatch_group)
+        if mesh is not None:
+            aux = collectives.batch_mean(aux, mesh, base.current_act_rules()["act_batch"])
+        return y, aux
+    n_local = cfg.n_experts // n_model
+    e_off = collectives.coordinate(mesh, "model") * n_local
+    model = collectives.axis_groups(mesh, ("model",))
+    routed = {"router": collectives.copy_to(params["router"], model)}
+    for key in ("gate", "up", "down"):
+        routed[key] = _local_experts(params[key], e_off, n_local)
+
+    def dispatch(pp, xg, cfg_):
+        return _dispatch_group_ep(pp, xg, cfg_, e_off, n_local)
+
+    y, aux = _moe_groups(routed, collectives.copy_to(x, model), cfg, group_size, dispatch)
+    y = collectives.reduce_sum(y, model)
+    # every "model" rank computes the same aux: its gradient is shared out
+    aux = collectives.batch_mean(collectives.scale_grad(aux, 1.0 / n_model), mesh, ("pod", "data"))
+    if cfg.n_shared_experts:
+        y = y + layers.mlp(params["shared"], x, "swiglu")
+    return y, aux

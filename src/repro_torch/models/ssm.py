@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import base, layers
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
@@ -192,7 +192,12 @@ def mamba2_state_init(cfg, batch: int, device: torch.device | str = "cuda") -> d
     N = cfg.ssm_state
     conv_dim = d_in + 2 * N
     return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=torch.bfloat16,
-                            device=device),
-        "ssd": torch.zeros((batch, H, N, cfg.ssm_head_dim), dtype=torch.float32, device=device),
+        "conv": base.shard_act(
+            torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=torch.bfloat16, device=device),
+            ("act_batch", None, "act_model"),
+        ),
+        "ssd": base.shard_act(
+            torch.zeros((batch, H, N, cfg.ssm_head_dim), dtype=torch.float32, device=device),
+            ("act_batch", "act_model", None, None),
+        ),
     }

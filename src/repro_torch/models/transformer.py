@@ -46,7 +46,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, layers, moe, ssm, xlstm
-from repro_torch.models import base
+from repro_torch.models import base, collectives
 from repro_torch.models.base import ParamDef, PyTree
 from repro_torch.models.config import ArchConfig
 
@@ -289,6 +289,73 @@ def _paths(tree: PyTree, path: tuple[str, ...] = ()) -> list:
     return [(path, tree)]
 
 
+def _zip_map(fn, a: PyTree, b: PyTree) -> PyTree:
+    """``fn(x, y)`` over the leaves of two nested dicts of one structure."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in sorted(a)}
+    return fn(a, b)
+
+
+class ShardedTransformer(Transformer):
+    """The trainable holding over a device mesh: each leaf is this rank's
+    shard, placed by ``base.make_shardings(model_defs(cfg), mesh, rules)``.
+
+    ``params`` is the full tree (the reference's layout), the same on every
+    rank; each rank keeps a copy of its block of every leaf, so the
+    parameters, their gradients and every optimizer state built from
+    ``param_tree()`` hold only this rank's shards. The forward gathers each
+    leaf whole (``collectives.gather_param``: all-gathers along its sharded
+    mesh dims) and computes on the rank's batch rows under
+    ``base.use_mesh(mesh, act_rules)``; the backward sums each leaf's full
+    gradient over the batch axes and keeps this rank's shard of it. Every
+    logit row is whole on its rank, so the cross entropy's logsumexp sees
+    the full vocabulary. ``profile`` picks the parameter rules, the
+    activation rules and the batch axes (``base.rules_for_profile``: "tp",
+    "fsdp" or "fsdp_sp")."""
+
+    def __init__(self, cfg: ArchConfig, params: PyTree, mesh, *, profile: str = "tp"):
+        rules, act_rules, batch_axes = base.rules_for_profile(profile)
+        shardings = base.make_shardings(model_defs(cfg), mesh, rules)
+        placements = {k: shardings[k] for k in sorted(params)}
+        local = _zip_map(lambda t, pl: collectives.shard_local(t.detach(), pl, mesh).clone(),
+                         params, placements)
+        super().__init__(cfg, local, trainable=True)
+        self.mesh = mesh
+        self.placements = placements
+        self.act_rules = act_rules
+        self.batch_axes = tuple(a for a in batch_axes if a in base.axis_sizes(mesh))
+        self.batch_groups = collectives.axis_groups(mesh, self.batch_axes)
+        self.shards = collectives.LeafShards(mesh, [pl for _, pl in _paths(placements)])
+
+    def _params(self):
+        full = _zip_map(lambda p, pl: collectives.gather_param(p, pl, self.mesh, self.batch_groups),
+                        self.param_tree(), self.placements)
+        return {k: _views(v, self._depth[k]) for k, v in full.items()}
+
+    def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
+        with base.use_mesh(self.mesh, self.act_rules):
+            return super().forward(batch, causal_mode=causal_mode, last_only=last_only)
+
+    def shard_tree(self, tree: PyTree) -> PyTree:
+        """This rank's shards of a full tree in the parameters' layout."""
+        return _zip_map(lambda t, pl: collectives.shard_local(t, pl, self.mesh), tree, self.placements)
+
+    @torch.no_grad()
+    def gather_tree(self, tree: PyTree) -> PyTree:
+        """The full tree from every rank's shards of a tree in the
+        parameters' layout (``param_tree()``, ``mu``, ``nu``, a residual);
+        every rank calls it."""
+        return _zip_map(lambda t, pl: collectives.gather_full(t, pl, self.mesh), tree, self.placements)
+
+    def full_param_tree(self) -> dict:
+        """The parameters whole (every rank calls it)."""
+        return self.gather_tree(self.param_tree())
+
+    def load_param_tree(self, params: PyTree) -> None:
+        """Copy this rank's shards of ``params`` (the full tree) in."""
+        super().load_param_tree(self.shard_tree(params))
+
+
 # ---------------------------------------------------------------------------
 # Block bodies
 # ---------------------------------------------------------------------------
@@ -323,7 +390,8 @@ def _attn_mlp_body(lp, h, cfg, causal_mode):
         lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, causal_mode=causal_mode
     )
     h = h + a
-    return h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+    h = h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+    return base.shard_act(h, ("act_batch", "act_seq", None))
 
 
 def _moe_body(lp, h, aux, cfg, causal_mode):
@@ -332,17 +400,17 @@ def _moe_body(lp, h, aux, cfg, causal_mode):
     )
     h = h + a
     y, aux_l = moe.moe_block(lp["moe"], layers.rmsnorm(lp["mlp_norm"], h), cfg)
-    return h + y, aux + aux_l
+    return base.shard_act(h + y, ("act_batch", "act_seq", None)), aux + aux_l
 
 
 def _mamba_body(lp, h, cfg):
     y, _ = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg)
-    return h + y
+    return base.shard_act(h + y, ("act_batch", "act_seq", None))
 
 
 def _mlstm_body(lp, h, cfg):
     y, _ = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg)
-    return h + y
+    return base.shard_act(h + y, ("act_batch", "act_seq", None))
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +422,14 @@ def embed_inputs(params: Any, batch: dict, cfg: ArchConfig) -> Tensor:
     """Token / frame / patch embedding -> (B, S, d) activations."""
     dt = layers.act_dt(cfg)
     if cfg.family == "audio":
-        return layers.linear(params["frontend_proj"], batch["frames"].to(dt))
-    if cfg.family == "vlm":
+        h = layers.linear(params["frontend_proj"], batch["frames"].to(dt))
+    elif cfg.family == "vlm":
         patches = layers.linear(params["patch_proj"], batch["patches"].to(dt))
         tok = layers.embed(params["embed"], batch["tokens"], cfg)
-        return torch.cat([patches, tok], dim=1)
-    return layers.embed(params["embed"], batch["tokens"], cfg)
+        h = torch.cat([patches, tok], dim=1)
+    else:
+        h = layers.embed(params["embed"], batch["tokens"], cfg)
+    return base.shard_act(h, ("act_batch", "act_seq", None))
 
 
 def forward(
@@ -404,7 +474,7 @@ def forward(
             for lp in glp:
                 h = body(lp, h, cfg)
             y, _ = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg)
-            h = h + y
+            h = base.shard_act(h + y, ("act_batch", "act_seq", None))
     if last_only:
         h = h[:, -1:]
     h = layers.rmsnorm(params["final_norm"], h)
@@ -474,6 +544,7 @@ def decode_step(
     at act fp32 the bf16 history of ``init_state`` is replaced by an fp32
     one on the first step."""
     h = layers.embed(params["embed"], token, cfg) if token.dim() == 2 else token
+    h = base.shard_act(h, ("act_batch", "act_seq", None))
 
     def kv_at(kv: dict, i: int) -> dict:
         return {"k": kv["k"][i], "v": kv["v"][i]}

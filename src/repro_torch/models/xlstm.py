@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import base, layers
 from repro_torch.models.base import pdef
 from repro_torch.models.ssm import chunked_linear_recurrence, linear_recurrence_step
 
@@ -92,7 +92,8 @@ def mlstm_block(
 def mlstm_state_init(cfg, batch: int, device: torch.device | str = "cuda") -> Tensor:
     H = cfg.n_heads
     dh = cfg.ssm_expand * cfg.d_model // H
-    return torch.zeros((batch, H, dh, dh + 1), dtype=torch.float32, device=device)
+    return base.shard_act(torch.zeros((batch, H, dh, dh + 1), dtype=torch.float32, device=device),
+                          ("act_batch", "act_model", None, None))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,12 @@ The compressor is the distributed-optimization hook: quantizing the
 gradient to int8 (per-leaf absmax scale) with error feedback (the residual
 carried to the next step) is what a data-parallel all-reduce would move;
 the quantized stream plus the residual equals the true stream.
+
+Over a device mesh the trees hold this rank's shard of every leaf
+(``transformer.ShardedTransformer``), and ``shards`` (its
+``collectives.LeafShards``) supplies the two reductions that see a whole
+leaf: the global norm sums every shard's squares, and the compressor's
+absmax scale is the whole leaf's maximum. Everything else is elementwise.
 """
 from __future__ import annotations
 
@@ -85,15 +91,20 @@ def lr_at(step: Tensor, cfg: OptConfig) -> Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: PyTree) -> Tensor:
-    """sqrt of the sum of squares, the leaves summed in tree order."""
-    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in base.tree_leaves(tree))
-    return torch.sqrt(sq)
+def global_norm(tree: PyTree, shards=None) -> Tensor:
+    """sqrt of the sum of squares, the leaves summed in tree order.
+    ``shards``: the leaves are shards, each leaf's sum is taken over all
+    of them (``collectives.LeafShards``)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in base.tree_leaves(tree)]
+    if shards is not None:
+        sq = shards.sum_over_shards(sq)
+    return torch.sqrt(sum(sq))
 
 
-def _int8_ef(g: Tensor, r: Tensor) -> tuple[Tensor, Tensor]:
+def _int8_ef(g: Tensor, r: Tensor, amax: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """``amax``: the whole leaf's max |g + r| when ``g`` is one shard."""
     t = g.to(torch.float32) + r
-    scale = torch.clamp(torch.max(torch.abs(t)), min=1e-12) / _f32(127.0, t)
+    scale = torch.clamp(torch.max(torch.abs(t)) if amax is None else amax, min=1e-12) / _f32(127.0, t)
     q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
     deq = q.to(torch.float32) * scale
     return deq, t - deq
@@ -111,14 +122,15 @@ def compress_int8_ef(grads: PyTree, residual: PyTree) -> tuple[PyTree, PyTree]:
 
 @torch.no_grad()
 def apply_updates(
-    params: PyTree, grads: PyTree, state: AdamState, cfg: OptConfig
+    params: PyTree, grads: PyTree, state: AdamState, cfg: OptConfig, shards=None
 ) -> tuple[PyTree, AdamState, dict]:
     """Clip by the global norm, (compress,) then one AdamW step with bias
     correction. Works in place: each parameter, ``mu``, ``nu`` and the
     residual are overwritten leaf by leaf (one leaf's temporaries alive at
     a time). Returns (params, the state with the new step, {"grad_norm",
-    "lr"})."""
-    gnorm = global_norm(grads)
+    "lr"}). ``shards``: every tree holds shards (``collectives.LeafShards``
+    gives the norm and the absmax scales over whole leaves)."""
+    gnorm = global_norm(grads, shards)
     scale = torch.minimum(_f32(1.0, gnorm),
                           torch.div(_f32(cfg.clip_norm, gnorm), torch.clamp(gnorm, min=1e-12)))
 
@@ -129,11 +141,16 @@ def apply_updates(
     bc2 = 1 - b2 ** step.to(torch.float32)
 
     p_l, m_l, v_l = (base.tree_leaves(t) for t in (params, state.mu, state.nu))
+    g_l = base.tree_leaves(grads)
     r_l = base.tree_leaves(state.ef_residual) if cfg.compress_grads else [None] * len(p_l)
-    for p, g, m, v, r in zip(p_l, base.tree_leaves(grads), m_l, v_l, r_l):
+    amax = [None] * len(p_l)
+    if cfg.compress_grads and shards is not None:  # each leaf's max |t| over all its shards
+        amax = shards.max_over_shards([torch.max(torch.abs(g.to(torch.float32) * scale + r))
+                                       for g, r in zip(g_l, r_l)])
+    for p, g, m, v, r, a in zip(p_l, g_l, m_l, v_l, r_l, amax):
         g = g.to(torch.float32) * scale
         if cfg.compress_grads:
-            g, new_r = _int8_ef(g, r)
+            g, new_r = _int8_ef(g, r, a)
             r.copy_(new_r)
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)

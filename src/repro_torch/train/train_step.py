@@ -18,6 +18,14 @@ Losses:
   decoder families — next-token CE (labels shifted inside), label -1 masks
   encoder (audio)  — per-frame CE, no shift
 MoE aux (load-balance) loss is added with weight ``aux_weight``.
+
+``make_mesh_train_step`` is the same step over a device mesh (DP × TP): the
+model a ``transformer.ShardedTransformer``, the batch this rank's rows
+(``TokenPipeline.device_batch``). Each rank computes the global loss (the
+masked token sum and count all-reduced over the batch axes) on its rows
+with every weight gathered whole, the gradients are summed over the batch
+axes back into each rank's shards, and ``apply_updates`` updates the
+shards with the norm and the compressor's scales taken over whole leaves.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import base
+from repro_torch.models import base, collectives
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as opt_lib
 
@@ -43,6 +51,13 @@ class StepConfig:
 
 def cross_entropy(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, Tensor]:
     """Masked mean CE. labels < 0 are ignored. Returns (loss, n_tokens)."""
+    nll, mask = _masked_nll(logits, labels, shift)
+    n = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / n, n
+
+
+def _masked_nll(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, Tensor]:
+    """(per-position CE, 0 where masked; the mask of labels >= 0)."""
     if shift:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -54,9 +69,7 @@ def cross_entropy(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, 
     mask = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    nll = (lse - ll) * mask
-    n = torch.clamp(mask.sum(), min=1)
-    return nll.sum() / n, n
+    return (lse - ll) * mask, mask
 
 
 def make_loss_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
@@ -82,14 +95,14 @@ def _grads(loss_fn: Callable, model, batch: dict) -> tuple[Tensor, dict, list]:
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_grad_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
+def make_grad_fn(cfg: ArchConfig, scfg: StepConfig, loss_fn: Callable | None = None) -> Callable:
     """(model, batch) -> (total, metrics, grads): the gradient half of the
     train step, ``grads`` a list in ``model.param_tree()`` leaf order.
     ``n_micro > 1``: the microbatches' gradients averaged in fp32, each
     divided by ``n_micro`` before it is added (the reference's scan), and
     the metrics ``loss`` = the mean total, ``aux`` = 0, ``n_tokens`` = 0
-    (the reference's report)."""
-    loss_fn = make_loss_fn(cfg, scfg)
+    (the reference's report). ``loss_fn``: ``make_loss_fn``'s by default."""
+    loss_fn = loss_fn or make_loss_fn(cfg, scfg)
     n_micro = scfg.n_micro
 
     def grad_fn(model, batch: dict):
@@ -128,6 +141,46 @@ def make_train_step(
         params = model.param_tree()
         _, opt_state, om = opt_lib.apply_updates(
             params, base.tree_unflatten(params, grads), opt_state, opt_cfg)
+        return model, opt_state, dict(metrics, **om, total=total)
+
+    return train_step
+
+
+def make_mesh_loss_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
+    """``make_loss_fn`` for a ``ShardedTransformer`` on this rank's batch
+    rows: the masked CE summed over the rows and all-reduced over the
+    batch axes, over the all-reduced token count, so every rank holds the
+    global loss and its backward gives its own rows' share. The model's
+    aux loss is already the mean over the batch axes (``moe.moe_block``
+    under a mesh)."""
+
+    def loss_fn(model, batch: dict) -> tuple[Tensor, dict]:
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        logits, aux = model(inputs, causal_mode=scfg.causal_mode)
+        nll, mask = _masked_nll(logits, batch["labels"], shift=not cfg.is_encoder)
+        n = torch.clamp(collectives.reduce_sum(mask.sum(), model.batch_groups), min=1)
+        loss = collectives.reduce_sum(nll.sum(), model.batch_groups) / n
+        total = loss + scfg.aux_weight * aux
+        return total, {"loss": loss, "aux": aux, "n_tokens": n}
+
+    return loss_fn
+
+
+def make_mesh_train_step(
+    cfg: ArchConfig, opt_cfg: opt_lib.OptConfig, scfg: StepConfig
+) -> Callable:
+    """``make_train_step`` over a device mesh: (ShardedTransformer, its
+    optimizer state, this rank's batch rows — tensors or
+    ``device_batch``'s DTensors) -> (model, opt_state, metrics), the
+    metrics global (the same on every rank)."""
+    grad_fn = make_grad_fn(cfg, scfg, make_mesh_loss_fn(cfg, scfg))
+
+    def train_step(model, opt_state: opt_lib.AdamState, batch: dict):
+        batch = {k: v.to_local() if hasattr(v, "to_local") else v for k, v in batch.items()}
+        total, metrics, grads = grad_fn(model, batch)
+        params = model.param_tree()
+        _, opt_state, om = opt_lib.apply_updates(
+            params, base.tree_unflatten(params, grads), opt_state, opt_cfg, shards=model.shards)
         return model, opt_state, dict(metrics, **om, total=total)
 
     return train_step

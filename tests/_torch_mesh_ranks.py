@@ -1,0 +1,191 @@
+"""The rank side of ``tests/test_torch_mesh.py``: the jobs each rank of the
+4-rank gloo world runs. This module imports neither ``jax`` nor ``repro``
+(a spawned rank imports it afresh), and every rank calls ``rank_main``.
+"""
+import dataclasses
+import datetime
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs, convert
+from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import train as train_lib
+from repro_torch.models import base, collectives, moe, transformer
+from repro_torch.train import optimizer as opt
+from repro_torch.train import train_step as ts
+
+WORLD = 4
+TIMEOUT_S = 300  # per rank
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy().copy()
+
+
+def _leaves(tree) -> list:
+    return [_np(t) for t in base.tree_leaves(tree)]
+
+
+def dp_tp_job(spec: dict) -> dict:
+    """Reduced stablelm-3b on a (2, 2) ("data", "model") mesh: the
+    spec's steps from its weights on ``device_batch`` rows, for each of
+    its variants (``n_micro``, ``compress_grads``, the sharding profile)."""
+    cfg = dataclasses.replace(configs.get_reduced(spec["arch"]), act_dtype="float32")
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+    out = {}
+    for variant, (n_micro, compress, profile) in spec["variants"].items():
+        full = convert.lm_params(spec["params"], cfg, "cpu", trainable=True).param_tree()
+        model = transformer.ShardedTransformer(cfg, full, mesh, profile=profile)
+        ocfg = opt.OptConfig(**spec["opt"], compress_grads=compress)
+        state = opt.init_opt_state(model.param_tree(), ocfg)
+        step = ts.make_mesh_train_step(cfg, ocfg, ts.StepConfig(n_micro=n_micro))
+        metrics, counts = [], []
+        for i in range(spec["steps"]):
+            collectives.reset_collective_counts()
+            model, state, m = step(model, state, pipe.device_batch(i, mesh, model.batch_axes))
+            counts.append(collectives.collective_counts())
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[variant] = {
+            "metrics": metrics,
+            "collectives": counts,
+            "shapes": {"/".join(p): tuple(t.shape) for p, t in transformer._paths(model.param_tree())},
+            "state_shapes": [[tuple(t.shape) for t in base.tree_leaves(x)]
+                             for x in (state.mu, state.nu, state.ef_residual)],
+            "params": _leaves(model.full_param_tree()),
+            "numel": sum(t.numel() for t in model.parameters()),
+            "coord": tuple(mesh.get_coordinate()),
+        }
+    return out
+
+
+def ep_job(spec: dict) -> dict:
+    """The expert-parallel ``moe_block`` on (1, 4) and (2, 2) meshes, on
+    this rank's batch rows: its output, aux loss, and the gradients of
+    sum(y * cot) + c · aux for x and the routed weights, with the weights
+    held whole and as this rank's expert shard."""
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **spec["cfg"])
+    out = {}
+    for shape in ((1, 4), (2, 2)):
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"), "cpu")
+        rows = shape[0]
+        d, m = mesh.get_coordinate()
+        n_local = cfg.n_experts // shape[1]
+        lo = d * (spec["x"].shape[0] // rows)
+        x_np = spec["x"][lo : lo + spec["x"].shape[0] // rows]
+        for held in ("whole", "shard"):
+            params = base.tree_map(lambda a: torch.tensor(a, requires_grad=True), spec["params"])
+            if held == "shard":
+                for k in ("gate", "up", "down"):
+                    params[k] = torch.tensor(spec["params"][k][m * n_local : (m + 1) * n_local],
+                                             requires_grad=True)
+            x = torch.tensor(x_np, requires_grad=True)
+            with base.use_mesh(mesh):
+                y, aux = moe.moe_block(params, x, cfg, group_size=spec["group_size"])
+            cot = torch.as_tensor(spec["cot"][lo : lo + x_np.shape[0]])
+            (y * cot).sum().add(spec["aux_c"] * aux).backward()
+            grads = {k: _np(params[k].grad) for k in ("router", "gate", "up", "down")}
+            out[(shape, held)] = {"rows": (lo, lo + x_np.shape[0]), "y": _np(y), "aux": float(aux.detach()),
+                                  "x_grad": _np(x.grad), "grads": grads, "coord": (d, m)}
+    return out
+
+
+def batch_job(spec: dict) -> dict:
+    """``device_batch`` on a (4,) and a (2, 2) mesh against ``host_batch``."""
+    cfg = configs.get_reduced("qwen1.5-0.5b")
+    pipe = TokenPipeline(cfg, PipelineConfig(seed=3, seq_len=16, global_batch=8))
+    out = {}
+    for shape, axes in (((4,), ("data",)), ((2, 2), ("data", "model"))):
+        mesh = mesh_lib.make_mesh(shape, axes, "cpu")
+        for step in (0, 5):
+            b = pipe.device_batch(step, mesh, ("pod", "data"))
+            host_id, n_hosts = mesh.get_coordinate()[0], shape[0]
+            want = pipe.host_batch(step, host_id, n_hosts)
+            g = pipe.global_batch(step)
+            out[(shape, step)] = all(
+                np.array_equal(b[k].to_local().numpy(), want[k]) and tuple(b[k].shape) == g[k].shape
+                and np.array_equal(b[k].full_tensor().numpy(), g[k]) for k in g)
+    return out
+
+
+def shard_act_job(spec: dict) -> dict:
+    """``shard_act`` on a DTensor under a (2, 2) mesh redistributes to the
+    activation rules' placements; a plain tensor passes unchanged."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    x = torch.arange(4 * 8 * 6, dtype=torch.float32).reshape(4, 8, 6)
+    dx = distribute_tensor(x, mesh, (Replicate(), Replicate()))
+    with base.use_mesh(mesh):
+        y = base.shard_act(dx, ("act_batch", "act_seq", None))
+        e = base.shard_act(distribute_tensor(torch.zeros(4, 4, 3, 2), mesh, (Replicate(), Replicate())),
+                           ("act_batch", "act_model", None, None))
+        plain = base.shard_act(x, ("act_batch", "act_seq", None)) is x
+    d, m = mesh.get_coordinate()
+
+    def kinds(pls):
+        return tuple(("shard", p.dim) if p.is_shard() else ("replicate",) for p in pls)
+
+    return {"placements": kinds(y.placements),
+            "local_ok": torch.equal(y.to_local(), x[2 * d : 2 * d + 2]),
+            "full_ok": torch.equal(y.full_tensor(), x),
+            "moe_placements": kinds(e.placements),
+            "moe_local": tuple(e.to_local().shape), "plain": plain}
+
+
+def guard_job(spec: dict) -> dict:
+    """A mesh of the wrong backend or size is an error."""
+    out = {}
+    for name, build in (("cuda", lambda: mesh_lib.make_host_mesh(device="cuda")),
+                        ("size", lambda: mesh_lib.make_mesh((2, 4), ("data", "model"), "cpu"))):
+        try:
+            build()
+            out[name] = "built"
+        except (RuntimeError, ValueError) as e:
+            out[name] = str(e)
+    return out
+
+
+def launcher_job(spec: dict) -> dict:
+    """``launch.train.train`` over the 1-D mesh of the world: a straight
+    run, then a run that checkpoints every step and fails after step 1,
+    then its resume."""
+    ckpt = os.path.join(spec["tmp"], "ckpt")
+    straight = train_lib.train(train_lib.parse_args(spec["argv"]))
+    try:
+        train_lib.train(train_lib.parse_args(spec["argv"] + ["--ckpt-dir", ckpt, "--ckpt-every", "1",
+                                                          "--fail-at", "1"]))
+        failed = False
+    except RuntimeError:
+        failed = True
+    resumed = train_lib.train(train_lib.parse_args(spec["argv"] + ["--ckpt-dir", ckpt, "--resume"]))
+    return {"straight": straight, "failed": failed, "resumed": resumed}
+
+
+JOBS = {"dp_tp": dp_tp_job, "ep": ep_job, "batch": batch_job, "shard_act": shard_act_job,
+        "guard": guard_job, "launcher": launcher_job}
+
+
+def rank_main(rank: int, init_file: str, out_dir: str, specs: dict) -> None:
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", world_size=WORLD, rank=rank,
+            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+        )
+        try:
+            out = {name: JOBS[name](spec) for name, spec in specs.items()}
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise

@@ -43,9 +43,11 @@ def test_package_imports_without_jax():
         "from repro_torch.data import dedup, pipeline, synthetic, vectorize\n"
         "from repro_torch import configs, models, train\n"
         "assert len({configs.get(n).name for n in configs.ARCH_NAMES}) == 10\n"
-        "from repro_torch.models import attention, base, config, layers, moe, ssm, transformer, xlstm\n"
+        "from repro_torch.models import attention, base, collectives, config, layers, moe, ssm, transformer, xlstm\n"
         "from repro_torch.train import checkpoint, optimizer, train_step\n"
-        "from repro_torch.launch import serve, train\n"
+        "from repro_torch.launch import mesh, serve, shardings, train\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from repro_torch.data.pipeline import PipelineConfig, TokenPipeline\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
