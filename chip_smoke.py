@@ -98,6 +98,20 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    moe_block under the (1, 1) mesh equal to the local path
                    bit for bit. Its seconds come out of the main path's
                    share too;
+  lm_dryrun      — the dry run (launch.dryrun, launch.dryrun_opt; meta
+                   tensors in a fake world, in two subprocesses run beside
+                   the card step; no kernel of the repo, the launch counts
+                   must read 0): (a) the dry run of lm_train's cell on a
+                   (1, 1) mesh against one mesh step of it on the card in an
+                   NCCL world of 1 after a warm-up step: the FLOPs equal
+                   FlopCounterMode's, the collective counts the card's (38
+                   all-gathers, 34 all-reduces), the predicted peak within
+                   the stated tolerance of max_memory_allocated (the gap
+                   printed); (b) dryrun_opt's train_4k cells of qwen1.5-0.5b
+                   and deepseek-moe-16b on the single-pod (16, 16) mesh:
+                   per-rank FLOPs, peak bytes, fit, bottleneck and
+                   mfu_bound printed. Its seconds come out of the main
+                   path's share too;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -161,7 +175,7 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
 The line before the last is the per-kernel JSON report; the last line is
 {"ok": true, "device": {...}}. Needs torch built for CUDA and one card.
 A full run takes about 14-16 minutes on an H100 (build ~30 s, lm_serve ~3 min,
-lm_train ~50 s, lm_mesh under a minute).
+lm_train ~50 s, lm_mesh under a minute, lm_dryrun about a minute).
 """
 from __future__ import annotations
 
@@ -1393,7 +1407,7 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
 def phase_main_path(report: dict, z: torch.Tensor, ptx: list,
                     share: float) -> tuple[dict, dict, torch.Tensor, float, object]:
     """The two main-path joins over the first N_ROWS rows of ``z``, fitted
-    into ``share`` seconds (MAIN_SHARE_S less the lm_serve, lm_train and lm_mesh phases'). The
+    into ``share`` seconds (MAIN_SHARE_S less the lm_serve, lm_train, lm_mesh and lm_dryrun phases'). The
     probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
     launch counts of both joins, the compact join's rows, δ and its
@@ -2797,6 +2811,145 @@ def phase_lm_mesh(smi: str) -> float:
     return time.perf_counter() - t0
 
 
+LM_DRYRUN_PEAK_REL = 0.05  # (a): |predicted peak - card peak| / card peak; the dry run sees no
+#   allocator rounding and no library workspace (cuBLAS's ~32 MiB), nor a kernel's own scratch
+LM_DRYRUN_OPT_ARCHS = ("qwen1.5-0.5b", "deepseek-moe-16b")  # (b): dryrun_opt's train_4k cells
+LM_DRYRUN_TIMEOUT_S = 300  # each dry-run subprocess
+
+
+def lm_dryrun_card_step() -> dict:
+    """Check (a)'s card side: lm_train's model and batch through the mesh
+    step on a (1, 1) mesh in an NCCL world of 1 (file rendezvous in a
+    temporary directory, destroyed in a finally). One step to warm up,
+    then, after ``reset_peak_memory_stats``, one step under
+    ``FlopCounterMode``: its FLOPs, the peak over what was allocated before
+    the model was built, and its collectives."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = lm_configs.get(LM_ARCH)
+    ocfg = lm_opt.OptConfig(total_steps=LM_TRAIN_STEPS, warmup_steps=max(LM_TRAIN_STEPS // 20, 1))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv", world_size=1, rank=0,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = lm_mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+            model = lm_train.build_model(cfg, seed=0, mesh=mesh)
+            state = lm_opt.init_opt_state(model.param_tree(), ocfg)
+            pipe = lm_pipeline.TokenPipeline(cfg, lm_pipeline.PipelineConfig(seed=0, seq_len=LM_TRAIN_SEQ,
+                                                                             global_batch=LM_TRAIN_BATCH))
+            batch = pipe.device_batch(0, mesh)
+            step = ts.make_mesh_train_step(cfg, ocfg, ts.StepConfig(n_micro=LM_TRAIN_MICRO))
+            model, state, _ = step(model, state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() - before
+            lm_collectives.reset_collective_counts()
+            t0 = time.perf_counter()
+            with FlopCounterMode(display=False) as fc:
+                model, state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out = {"flops": float(fc.get_total_flops()), "peak": torch.cuda.max_memory_allocated() - before,
+                   "held": held, "colls": lm_collectives.collective_counts(), "loss": float(m["total"]),
+                   "s": secs}
+            del model, state, batch, m
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_records(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_lm_dryrun(smi: str) -> float:
+    """The dry run (launch.dryrun, launch.dryrun_opt) against the card. Two
+    subprocesses, started first and run beside the card step (so that no
+    fake world meets this process's NCCL state): (a) the dry run of
+    lm_train's cell (qwen1.5-0.5b at full width and depth, 4 x 4,096
+    tokens in 2 microbatches, remat full, bf16 over fp32 leaves) on a
+    (1, 1) mesh, and (b) dryrun_opt's train_4k cells of LM_DRYRUN_OPT_ARCHS
+    on the single-pod (16, 16) mesh (deepseek: the expert-parallel branch
+    under remat full). (a) holds the dry run's FLOPs equal to
+    FlopCounterMode's on the card's step, its collective counts to the
+    card's and lm_mesh's 38 and 34, and its peak within
+    LM_DRYRUN_PEAK_REL of the card's; (b) prints each record's per-rank
+    FLOPs, peak, fit, bottleneck and mfu_bound (predictions from the H100
+    SXM's data-sheet constants); (c) the repo's kernels launched 0 times.
+    Returns the phase's seconds."""
+    log("== lm_dryrun: the dry run on meta in a fake world, against the card")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = {
+            "card": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape", "train_4k",
+                     "--mesh-shape", "1,1", "--global-batch", str(LM_TRAIN_BATCH), "--n-micro",
+                     str(LM_TRAIN_MICRO), "--out", os.path.join(tmp, "card.jsonl")],
+            "opt": [sys.executable, "-m", "repro_torch.launch.dryrun_opt", "--arch", *LM_DRYRUN_OPT_ARCHS,
+                    "--shape", "train_4k", "--single-pod", "--out", os.path.join(tmp, "opt.jsonl")],
+        }
+        logs = {k: open(os.path.join(tmp, f"{k}.log"), "w") for k in cmds}
+        procs = {k: subprocess.Popen(c, env=env, cwd=tmp, stdout=logs[k], stderr=subprocess.STDOUT)
+                 for k, c in cmds.items()}
+        try:
+            card = lm_dryrun_card_step()
+            rcs = {k: p.wait(LM_DRYRUN_TIMEOUT_S) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+            for f in logs.values():
+                f.close()
+        for k, rc in rcs.items():
+            if rc:
+                log(open(os.path.join(tmp, f"{k}.log")).read()[-4000:])
+        assert not any(rcs.values()), rcs
+        (pred,) = _dryrun_records(os.path.join(tmp, "card.jsonl"))
+        prod = _dryrun_records(os.path.join(tmp, "opt.jsonl"))
+    assert "error" not in pred, pred.get("traceback")
+    gap = (pred["memory"]["peak_bytes"] - card["peak"]) / card["peak"]
+    ok_a = (pred["flops_per_device"] == card["flops"] and pred["coll_counts"] == card["colls"]
+            == {"all_gather": 38, "all_reduce": 34} and abs(gap) <= LM_DRYRUN_PEAK_REL)
+    log(f"[lm_dryrun {elapsed():.1f}s] check (a) {LM_ARCH} {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in "
+        f"{LM_TRAIN_MICRO} microbatches on a (1, 1) mesh: FLOPs dry run {pred['flops_per_device']!r} vs card "
+        f"FlopCounterMode {card['flops']!r} (equal {pred['flops_per_device'] == card['flops']}); collectives dry "
+        f"run {json.dumps(pred['coll_counts'])} vs card {json.dumps(card['colls'])}; peak dry run "
+        f"{pred['memory']['peak_bytes'] / 2**30:.3f} GiB vs card max_memory_allocated {card['peak'] / 2**30:.3f} GiB "
+        f"(over what was allocated before; held at the step's start {card['held'] / 2**30:.3f} GiB vs arguments "
+        f"{pred['memory']['argument_bytes'] / 2**30:.3f} GiB): gap {gap:+.4f} (bar {LM_DRYRUN_PEAK_REL}); split "
+        f"{json.dumps({k: round(v / 2**30, 3) for k, v in pred['memory']['split'].items()})} GiB; dry run built in "
+        f"{pred['build_s']}s, step {pred['step_s']}s; card step {card['s']:.3f}s under FlopCounterMode, loss "
+        f"{card['loss']:.4f}: {'ok' if ok_a else 'FAILED'}; {smi}")
+    ok_b = len(prod) == len(LM_DRYRUN_OPT_ARCHS)
+    for rec in prod:
+        ok_b = ok_b and "error" not in rec and math.isfinite(rec.get("mfu_bound") or float("nan"))
+        if "error" in rec:
+            log(f"[lm_dryrun {elapsed():.1f}s] check (b) {rec['arch']}: ERROR {rec['error']}\n{rec['traceback']}")
+            continue
+        log(f"[lm_dryrun {elapsed():.1f}s] check (b) {rec['arch']} train_4k on the single-pod {rec['mesh_shape']} "
+            f"mesh, {json.dumps(rec['opt'])}, n_micro {rec['n_micro']}, {rec['rows_per_rank']} rows a rank: "
+            f"flops_per_device {rec['flops_per_device']:.4e}, peak_bytes {rec['memory']['peak_bytes']:.4e} "
+            f"(fits {rec['fits']}), coll {json.dumps(rec['coll_counts'])} {rec['coll_bytes_per_device']:.4e} B, "
+            f"dot traffic {rec['dot_traffic_per_device']:.4e} B, bottleneck {rec['roofline']['bottleneck']}, "
+            f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, mfu_bound {rec['mfu_bound']:.4f} (H100 SXM "
+            f"data-sheet constants, predictions); built {rec['build_s']}s, step {rec['step_s']}s")
+        log(f"  split {json.dumps({k: round(v / 2**30, 3) for k, v in rec['memory']['split'].items()})} GiB; "
+            f"roofline {json.dumps({k: v for k, v in rec['roofline'].items() if k != 'bottleneck'})}")
+    counts = ops.launch_counts()
+    log(f"[lm_dryrun {elapsed():.1f}s] check (c) launch counts of the repo's kernels {json.dumps(counts)} "
+        "(the dry run's path runs none of the five)")
+    assert not any(counts.values()), counts
+    assert ok_a and ok_b, (ok_a, ok_b)
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -2810,12 +2963,14 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] lm_train done in {train_s:.1f}s")
     mesh_s = phase_lm_mesh(env["smi"])
     log(f"[{elapsed():.1f}s] lm_mesh done in {mesh_s:.1f}s")
+    dry_s = phase_lm_dryrun(env["smi"])
+    log(f"[{elapsed():.1f}s] lm_dryrun done in {dry_s:.1f}s")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
     mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx,
-                                                                     MAIN_SHARE_S - lm_s - train_s - mesh_s)
+                                                                     MAIN_SHARE_S - lm_s - train_s - mesh_s - dry_s)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

@@ -5,9 +5,12 @@ The mesh constructors are FUNCTIONS, never module-level constants: importing
 this module touches no process group and no device. Each builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the world
 the caller initialised (``init_process_group`` with its own address, world
-size and rank); none initialises a world itself. By default a mesh is on
-the card and needs an NCCL world; ``device="cpu"`` asks for a gloo one.
-A world of the wrong backend or size is an error, never a quiet fallback.
+size and rank); none initialises a world itself (``fake_world`` is the
+dry run's own). By default a mesh is on the card and needs an NCCL world;
+``device="cpu"`` asks for a gloo one, ``device="fake"`` for the world of
+``fake_world``: one process as rank 0 of the production mesh, collectives
+that move nothing, on ``meta`` tensors. A world of the wrong backend or
+size is an error, never a quiet fallback.
 
 Mesh semantics (the reference's):
   single-pod (16, 16)    axes ("data", "model") — 256 ranks
@@ -23,6 +26,7 @@ path — ``MetricIndex.to_distributed(make_host_mesh(axis="data")
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -30,7 +34,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+_BACKEND = {"cuda": "nccl", "cpu": "gloo", "fake": "fake"}
+_MESH_DEVICE = {"cuda": "cuda", "cpu": "cpu", "fake": "cpu"}
 
 
 def _require_world() -> None:
@@ -39,12 +44,33 @@ def _require_world() -> None:
                            "torch.distributed.init_process_group first")
 
 
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a world of ``n`` ranks whose collectives
+    move nothing (torch's "fake" backend): the dry run's world. It refuses,
+    touching nothing, when a world is already initialised, sets no
+    environment variable, and destroys its group on the way out."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a world; one is initialised")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(f"torch {torch.__version__} has no fake process group "
+                           "(torch.testing._internal.distributed.fake_pg)") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialised
-    world (ranks in row-major order), on ``device`` ("cuda" with NCCL, or
-    "cpu" with gloo). Every rank of the world calls it."""
+    world (ranks in row-major order), on ``device`` ("cuda" with NCCL,
+    "cpu" with gloo, or "fake" with ``fake_world``'s backend: a CPU mesh
+    for ``meta`` tensors). Every rank of the world calls it."""
     if device not in _BACKEND:
-        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
+        raise ValueError(f"device must be 'cuda' or 'cpu' ('fake' in fake_world), not {device!r}")
     _require_world()
     backend = dist.get_backend()
     if _BACKEND[device] not in backend:
@@ -52,7 +78,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device: str = "cuda
     if math.prod(shape) != dist.get_world_size():
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks; "
                          f"the world has {dist.get_world_size()}")
-    return DeviceMesh(device, torch.arange(math.prod(shape)).reshape(shape), mesh_dim_names=tuple(axes))
+    return DeviceMesh(_MESH_DEVICE[device], torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

@@ -311,6 +311,13 @@ def current_mesh():
     return _CURRENT_MESH[-1][0]
 
 
+def current_mesh_entry() -> tuple[Any, dict]:
+    """(mesh, activation rules) in force: ``use_mesh(*entry)`` re-enters
+    them (a checkpointed body's recompute, which runs in the backward
+    pass after the forward's ``use_mesh`` has exited)."""
+    return _CURRENT_MESH[-1]
+
+
 def current_act_rules() -> dict:
     return _CURRENT_MESH[-1][1]
 

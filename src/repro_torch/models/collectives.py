@@ -25,7 +25,10 @@ gradients of a replicated input must be summed (the expert-parallel MoE,
 where each rank reaches only its own experts).
 
 Every collective is counted (``collective_counts``), as the distributed
-executor counts its own.
+executor counts its own, with its wire bytes per rank beside the count
+(``collective_bytes``; the reference's ring formulas, ``hloparse.py``):
+an all-gather of a result of R bytes over g ranks moves (g - 1) / g · R,
+an all-reduce of S bytes 2 (g - 1) / g · S.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.models import base
 Tensor = torch.Tensor
 
 _COUNTS = {"all_gather": 0, "all_reduce": 0}
+_BYTES = {"all_gather": 0.0, "all_reduce": 0.0}
 
 
 def collective_counts() -> dict[str, int]:
@@ -46,13 +50,21 @@ def collective_counts() -> dict[str, int]:
     return dict(_COUNTS)
 
 
+def collective_bytes() -> dict[str, float]:
+    """Wire bytes per rank of those collectives, by kind (ring formulas)."""
+    return dict(_BYTES)
+
+
 def reset_collective_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+        _BYTES[k] = 0.0
 
 
 def _all_reduce(x: Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    g = dist.get_world_size(group)
     _COUNTS["all_reduce"] += 1
+    _BYTES["all_reduce"] += 2 * (g - 1) / g * x.numel() * x.element_size()
     dist.all_reduce(x, op=op, group=group)
 
 
@@ -158,8 +170,10 @@ def gather_full(local: Tensor, placements: tuple, mesh) -> Tensor:
         pl = placements[i]
         if pl.is_shard():
             group = mesh.get_group(i)
-            parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+            g = dist.get_world_size(group)
+            parts = [torch.empty_like(t) for _ in range(g)]
             _COUNTS["all_gather"] += 1
+            _BYTES["all_gather"] += (g - 1) * t.numel() * t.element_size()  # (g - 1) / g of the result
             dist.all_gather(parts, t, group=group)
             t = torch.cat(parts, dim=pl.dim)
     return t

@@ -306,7 +306,7 @@ class ShardedTransformer(Transformer):
     ``param_tree()`` hold only this rank's shards. The forward gathers each
     leaf whole (``collectives.gather_param``: all-gathers along its sharded
     mesh dims) and computes on the rank's batch rows under
-    ``base.use_mesh(mesh, act_rules)``; the backward sums each leaf's full
+    ``base.use_mesh(mesh, act_rules)`` (``decode_step`` too); the backward sums each leaf's full
     gradient over the batch axes and keeps this rank's shard of it. Every
     logit row is whole on its rank, so the cross entropy's logsumexp sees
     the full vocabulary. ``profile`` picks the parameter rules, the
@@ -335,6 +335,10 @@ class ShardedTransformer(Transformer):
     def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
         with base.use_mesh(self.mesh, self.act_rules):
             return super().forward(batch, causal_mode=causal_mode, last_only=last_only)
+
+    def decode_step(self, token: Tensor, state: PyTree, length: int | Tensor):
+        with base.use_mesh(self.mesh, self.act_rules):
+            return super().decode_step(token, state, length)
 
     def shard_tree(self, tree: PyTree) -> PyTree:
         """This rank's shards of a full tree in the parameters' layout."""
@@ -376,13 +380,24 @@ def _remat(f: Callable, cfg: ArchConfig, on: bool) -> Callable:
     """``f`` under ``cfg.remat`` when ``on`` and autograd records:
     "full" recomputes the whole body in the backward pass, "dots" keeps
     the unbatched matmul outputs and recomputes the rest, "none" keeps
-    everything."""
+    everything. The recompute runs under the mesh and activation rules
+    that were current when the body was called (the backward pass runs
+    after the forward's ``base.use_mesh`` has exited), so it takes the
+    forward's branches: the MoE's expert-parallel dispatch, ``shard_act``."""
     if not on or cfg.remat == "none" or not torch.is_grad_enabled():
         return f
     kw = {"use_reentrant": False, "preserve_rng_state": False}  # the bodies draw no random numbers
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(ckpt.checkpoint, f, **kw)
+
+    def under_mesh(entry, *args):
+        with base.use_mesh(*entry):
+            return f(*args)
+
+    def run(*args):
+        return ckpt.checkpoint(under_mesh, base.current_mesh_entry(), *args, **kw)
+
+    return run
 
 
 def _attn_mlp_body(lp, h, cfg, causal_mode):

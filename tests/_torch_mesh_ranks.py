@@ -65,6 +65,29 @@ def dp_tp_job(spec: dict) -> dict:
     return out
 
 
+def moe_remat_job(spec: dict) -> dict:
+    """Reduced deepseek-moe-16b under each of the spec's ``remat`` modes on
+    a (2, 2) ("data", "model") mesh ("tp" profile: the expert-parallel
+    branch over "model"), the spec's steps from a seeded draw on
+    ``device_batch`` rows: the metrics and final parameters of each."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for remat in spec["remats"]:
+        cfg = dataclasses.replace(configs.get_reduced(spec["arch"]), **spec["cfg"], remat=remat)
+        pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+        full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
+        model = transformer.ShardedTransformer(cfg, full, mesh, profile="tp")
+        ocfg = opt.OptConfig(**spec["opt"])
+        state = opt.init_opt_state(model.param_tree(), ocfg)
+        step = ts.make_mesh_train_step(cfg, ocfg, ts.StepConfig(aux_weight=spec["aux_weight"]))
+        metrics = []
+        for i in range(spec["steps"]):
+            model, state, m = step(model, state, pipe.device_batch(i, mesh, model.batch_axes))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[remat] = {"metrics": metrics, "params": _leaves(model.full_param_tree())}
+    return out
+
+
 def ep_job(spec: dict) -> dict:
     """The expert-parallel ``moe_block`` on (1, 4) and (2, 2) meshes, on
     this rank's batch rows: its output, aux loss, and the gradients of
@@ -168,7 +191,7 @@ def launcher_job(spec: dict) -> dict:
     return {"straight": straight, "failed": failed, "resumed": resumed}
 
 
-JOBS = {"dp_tp": dp_tp_job, "ep": ep_job, "batch": batch_job, "shard_act": shard_act_job,
+JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "ep": ep_job, "batch": batch_job, "shard_act": shard_act_job,
         "guard": guard_job, "launcher": launcher_job}
 
 

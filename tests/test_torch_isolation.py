@@ -45,7 +45,7 @@ def test_package_imports_without_jax():
         "assert len({configs.get(n).name for n in configs.ARCH_NAMES}) == 10\n"
         "from repro_torch.models import attention, base, collectives, config, layers, moe, ssm, transformer, xlstm\n"
         "from repro_torch.train import checkpoint, optimizer, train_step\n"
-        "from repro_torch.launch import mesh, serve, shardings, train\n"
+        "from repro_torch.launch import dryrun, dryrun_opt, mesh, serve, shardings, stepcount, train\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
         "from repro_torch.data.pipeline import PipelineConfig, TokenPipeline\n"

@@ -27,6 +27,13 @@ the JAX side is computed here.
   moves a weight by lr whether its gradient is one quantum or zero). A
   third runs the fsdp profile: batch rows over all 4 ranks, each weight
   sharded on one dim over ("data", "model"), the port's bounds.
+* Reduced deepseek-moe-16b at act fp32 under remat "full" and "dots" on the (2, 2)
+  mesh ("tp": the expert-parallel MoE over "model"), two steps, against
+  the single-process port with the stablelm case's bounds. The
+  checkpointed bodies are recomputed in the backward pass, outside the
+  forward's ``use_mesh``; the recompute must take the same MoE branch as
+  the forward. ``aux_weight`` 0: the load-balance loss is a product of
+  batch means, so a batch-sharded mesh gives another value (ROADMAP §3).
 * Each rank's parameter and ``mu`` shapes are its shards under
   ``make_shardings``, and together the ranks hold each leaf once per
   replica.
@@ -73,6 +80,8 @@ DP_TP = dict(arch="stablelm-3b", steps=2, batch=4, seq=32,
              opt=dict(lr=1e-3, total_steps=20, warmup_steps=2),
              variants={"plain": (1, False, "tp"), "micro2_int8": (2, True, "tp"),
                        "fsdp": (1, False, "fsdp")})  # (n_micro, compress_grads, profile)
+MOE_REMAT = dict(arch="deepseek-moe-16b", cfg=dict(act_dtype="float32"), remats=("full", "dots"), seed=1,
+                 steps=2, batch=4, seq=32, opt=DP_TP["opt"], aux_weight=0.0)
 EP_CFG = dict(n_experts=8, top_k=2, n_shared_experts=2, capacity_factor=8.0)
 LAUNCH_ARGV = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--steps", "2",
                "--global-batch", "4", "--seq-len", "32", "--log-every", "1"]
@@ -107,7 +116,7 @@ def world(tmp_path_factory):
     """Every job in one spawned 4-rank gloo world; per-rank results."""
     tmp = tmp_path_factory.mktemp("mesh4")
     _, params = _ref_weights(DP_TP["arch"])
-    specs = {"dp_tp": dict(DP_TP, params=params), "ep": _ep_inputs(), "batch": {}, "shard_act": {},
+    specs = {"dp_tp": dict(DP_TP, params=params), "moe_remat": MOE_REMAT, "ep": _ep_inputs(), "batch": {}, "shard_act": {},
              "guard": {}, "launcher": dict(argv=LAUNCH_ARGV, tmp=str(tmp))}
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=ranks.rank_main, args=(r, str(tmp / "rdzv"), str(tmp), specs))
@@ -219,6 +228,35 @@ def test_dp_tp_ranks_hold_only_their_shards(world):
     assert sum(numel) < ranks.WORLD * total_full
     assert {world[r]["dp_tp"]["micro2_int8"]["coord"] for r in range(ranks.WORLD)} == {
         (0, 0), (0, 1), (1, 0), (1, 1)}
+
+
+@pytest.mark.parametrize("remat", MOE_REMAT["remats"])
+def test_moe_remat_steps_on_mesh_match_single_device(world, remat):
+    spec = MOE_REMAT
+    cfg = dataclasses.replace(configs.get_reduced(spec["arch"]), **spec["cfg"], remat=remat)
+    pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+    model = train_lib.build_model(cfg, seed=spec["seed"], device="cpu")
+    ocfg = opt.OptConfig(**spec["opt"])
+    state = opt.init_opt_state(model.param_tree(), ocfg)
+    step = ts.make_train_step(cfg, ocfg, ts.StepConfig(aux_weight=spec["aux_weight"]))
+    want = []
+    for i in range(spec["steps"]):
+        model, state, m = step(model, state, {k: torch.as_tensor(v) for k, v in pipe.global_batch(i).items()})
+        want.append({k: float(v) for k, v in m.items()})
+    res = [world[r]["moe_remat"][remat] for r in range(ranks.WORLD)]
+    for r in range(ranks.WORLD):
+        assert res[r]["metrics"] == res[0]["metrics"]
+    got = res[0]["metrics"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        print(f"moe remat {remat} step {i + 1}: loss {g['loss']!r} vs {w['loss']!r}, grad_norm {g['grad_norm']!r} vs "
+              f"{w['grad_norm']!r}")
+        for k in ("loss", "total"):
+            assert g[k] == pytest.approx(w[k], rel=1e-6), (i, k)
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-5), i
+    worst, share = _param_gaps(res[0]["params"], [_np(t) for t in base.tree_leaves(model.param_tree())])
+    print(f"moe remat {remat}: params max |d| {worst:.3e}, share within 1 % of lr x steps {share:.5f}")
+    assert worst <= 2 * DP_TP["opt"]["lr"] * DP_TP["steps"]
+    assert share >= 0.999
 
 
 class _Fake:
