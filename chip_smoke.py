@@ -112,6 +112,18 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    per-rank FLOPs, peak bytes, fit, bottleneck and
                    mfu_bound printed. Its seconds come out of the main
                    path's share too;
+  contracts      — the port's contract checker (tools/spjoin_lint_torch): its
+                   AST layer over src/repro_torch must exit 0; then a mask
+                   and a compact l1 join of 50,000 rows (default config)
+                   under torch.cuda.set_sync_debug_mode("warn"), warnings
+                   recorded (the mode reset in a finally): each path's
+                   syncs per tile (tiles from VerifyStats, syncs from the
+                   warnings raised on lines of the verify loop) held against
+                   the loop's stream-tier budget, every line that synced
+                   there one the checker counts; and the syncs of one
+                   decode_step of lm_serve's qwen1.5-0.5b (measured in
+                   lm_serve, after its run) held against the step tier's
+                   budget. Its seconds come out of the main path's share;
   4. main path   — two l1 self-joins over a 1M x 128 clustered float32 set
                    (the shape of the SIFT1M base set): the default config
                    (emit="mask") and emit="compact", each with the launch
@@ -189,12 +201,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.core import baselines, distances, distributed, index, partition, spjoin, verify  # noqa: E402
@@ -219,6 +234,8 @@ from repro_torch.models import xlstm as lm_xlstm  # noqa: E402
 from repro_torch.train import checkpoint as lm_ckpt  # noqa: E402
 from repro_torch.train import optimizer as lm_opt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
+from spjoin_lint_torch import astlint as lint_ast  # noqa: E402
+from spjoin_lint_torch import config as lint_config  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -1407,8 +1424,8 @@ def main_join(x: torch.Tensor, cfg, label: str) -> tuple[object, dict]:
 def phase_main_path(report: dict, z: torch.Tensor, ptx: list,
                     share: float) -> tuple[dict, dict, torch.Tensor, float, object]:
     """The two main-path joins over the first N_ROWS rows of ``z``, fitted
-    into ``share`` seconds (MAIN_SHARE_S less the lm_serve, lm_train, lm_mesh and lm_dryrun phases'). The
-    probe's budget also holds the distributed join of the compact join's
+    into ``share`` seconds (MAIN_SHARE_S less the lm_serve, lm_train, lm_mesh, lm_dryrun and
+    contracts phases'). The probe's budget also holds the distributed join of the compact join's
     rows (phase "distributed"), predicted as a compact join. Returns the
     launch counts of both joins, the compact join's rows, δ and its
     result."""
@@ -2354,7 +2371,7 @@ def lm_cut(cfg, n_layers: int, what: str):
     return cut
 
 
-def phase_lm_serve(smi: str) -> float:
+def phase_lm_serve(smi: str) -> tuple[float, dict]:
     """The LM stack's serving path on the card, through ``launch.serve``'s
     functions (8 requests x 128 prompt tokens, greedy): qwen1.5-0.5b at
     full width and depth (64 generated) with checks (a)-(c), granite-34b
@@ -2362,7 +2379,8 @@ def phase_lm_serve(smi: str) -> float:
     families (``LM_FAMILY_RUNS``), each with (a), (c), the ids reproduced
     and (b) on a cut depth. The path launches none of the repo's kernels:
     the counts are set to 0 before it and must read 0 after. Returns the
-    phase's seconds."""
+    phase's seconds and the host syncs of one qwen decode step
+    (:func:`decode_syncs`, for the contracts phase)."""
     log("== lm_serve: the LM stack's serving path at full width (dense, moe, hybrid, ssm)")
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -2371,6 +2389,9 @@ def phase_lm_serve(smi: str) -> float:
         cfg = lm_configs.get(LM_ARCH)
         model, prompts, dec, served = lm_serve_run(cfg, LM_GEN, cfg.name, smi)
         ok += [served, lm_check_a(model, prompts, dec, cfg.name)]
+        dec_syncs = dict(decode_syncs(model, prompts), arch=cfg.name, batch=prompts.shape[0])
+        log(f"[lm_serve {elapsed():.1f}s] {cfg.name}: one decode_step made {dec_syncs['syncs']} host syncs "
+            "(held by the contracts phase)")
         del model
         lm_reference_init_gap(cfg, prompts)
         ok.append(lm_check_b(cfg, cfg.name))
@@ -2398,7 +2419,7 @@ def phase_lm_serve(smi: str) -> float:
     log(f"[lm_serve {elapsed():.1f}s] launch counts of the repo's kernels {json.dumps(counts)}")
     assert not any(counts.values()), counts
     assert all(ok), ok
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, dec_syncs
 
 
 # --------------------------------------------------------------------------
@@ -2950,6 +2971,92 @@ def phase_lm_dryrun(smi: str) -> float:
     return time.perf_counter() - t0
 
 
+# --------------------------------------------------------------------------
+# contracts: the port's contract checker, and host syncs measured on the card
+# --------------------------------------------------------------------------
+
+CONTRACTS_N = 50_000  # rows of the audited joins (the profiled joins' size)
+
+
+def recorded_syncs(fn) -> tuple[object, list[tuple[str, int]]]:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its result
+    and the (file, line) of every synchronizing CUDA call it made (the
+    innermost Python frame of each warning). The mode is reset in a
+    finally."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [(os.path.realpath(w.filename), w.lineno) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+
+
+def decode_syncs(model, prompts: torch.Tensor) -> dict:
+    """Syncs of one ``decode_step`` of a served model, after a warm-up step
+    (the serving step's greedy argmax included)."""
+    step = ts.make_serve_step(model.cfg)
+    B, T = prompts.shape
+    state = model.init_state(B, T + 2)
+    tok, _, state = step(model, prompts[:, -1:], state, T)
+    _, sites = recorded_syncs(lambda: step(model, tok, state, T + 1))
+    torch.cuda.synchronize()
+    return {"syncs": len(sites), "sites": sorted(set(sites))}
+
+
+def phase_contracts(smi: str, dec: dict) -> float:
+    """The contract checker's AST layer over the port (exit 0), then the host
+    syncs of a mask and a compact join of CONTRACTS_N rows per verify tile
+    against the tile loop's stream-tier budget, and those of one decode step
+    (``dec``, lm_serve's :func:`decode_syncs`) against the step tier's.
+    Returns the phase's seconds."""
+    log("== contracts: the port's contract checker; host syncs per tile and per decode step")
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([os.path.join(ROOT, "tools"), os.path.join(ROOT, "src")])}
+    lint = subprocess.run([sys.executable, "-m", "spjoin_lint_torch", os.path.join(ROOT, "src", "repro_torch")],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    log(f"[contracts] spjoin_lint_torch over src/repro_torch: exit {lint.returncode}; "
+        f"{lint.stdout.strip().splitlines()[-1] if lint.stdout.strip() else lint.stderr[-2000:]}")
+    assert lint.returncode == 0, lint.stdout[-4000:] + lint.stderr[-2000:]
+    rel, scope = lint_config.TILE_LOOP
+    verify_py = os.path.realpath(verify.__file__)
+    assert verify_py.endswith(rel), (verify_py, rel)
+    budget = lint_config.STREAM_SCOPES[rel][scope]
+    static = lint_ast.sync_sites(Path(verify_py))[scope]
+    counted = set(static["sites"])
+
+    def in_loop(line: int) -> bool:
+        return any(lo <= line <= hi for lo, hi in static["loops"])
+    x = _mixture(CONTRACTS_N, 128, 13)
+    torch.manual_seed(1)  # profile_join's δ
+    delta = pick_delta(x, "l1", 10.0)
+    ok = True
+    for emit in ("mask", "compact"):
+        cfg = spjoin.JoinConfig(delta=delta, emit=emit)
+        run_join(x, cfg)  # warm
+        res, sites = recorded_syncs(lambda: spjoin.join(x, cfg))
+        torch.cuda.synchronize()
+        tiles = res.verify_stats.n_tiles
+        loop = [ln for f, ln in sites if f == verify_py and in_loop(ln)]
+        per_tile = len(loop) / max(tiles, 1)
+        lines = {ln: loop.count(ln) for ln in sorted(set(loop))}
+        missed = sorted(set(loop) - counted)
+        good = per_tile <= budget and not missed
+        ok &= good
+        log(f"[contracts] {emit} join N={CONTRACTS_N}: {tiles} tiles, {res.verify_stats.n_cells} cells; "
+            f"{len(sites)} syncs in the join ({len(sites) / max(tiles, 1):.4f} per tile), {len(loop)} in the loops of "
+            f"{scope} ({per_tile:.4f} per tile; budget {budget} sync sites, config.STREAM_SCOPES); by line "
+            f"{json.dumps(lines)}; lines the checker does not count {missed}: {'ok' if good else 'FAILED'}")
+    good = dec["syncs"] <= lint_config.STEP_SYNCS
+    ok &= good
+    log(f"[contracts] decode_step of {dec['arch']} (batch {dec['batch']}): {dec['syncs']} syncs per step "
+        f"(budget {lint_config.STEP_SYNCS}, the step tier); sites {dec['sites']}: {'ok' if good else 'FAILED'}; {smi}")
+    assert ok
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     env = phase_environment()
     torch.manual_seed(0)  # the row samples that set δ
@@ -2957,7 +3064,7 @@ def main() -> None:
     ptx = phase_build()
     report = phase_kernels()
     log(f"[{elapsed():.1f}s] kernels checked")
-    lm_s = phase_lm_serve(env["smi"])
+    lm_s, dec_syncs = phase_lm_serve(env["smi"])
     log(f"[{elapsed():.1f}s] lm_serve done in {lm_s:.1f}s")
     train_s = phase_lm_train(env["smi"])
     log(f"[{elapsed():.1f}s] lm_train done in {train_s:.1f}s")
@@ -2965,12 +3072,14 @@ def main() -> None:
     log(f"[{elapsed():.1f}s] lm_mesh done in {mesh_s:.1f}s")
     dry_s = phase_lm_dryrun(env["smi"])
     log(f"[{elapsed():.1f}s] lm_dryrun done in {dry_s:.1f}s")
+    contracts_s = phase_contracts(env["smi"], dec_syncs)
+    log(f"[{elapsed():.1f}s] contracts done in {contracts_s:.1f}s")
     # The main path's rows, then fresh rows of the same mixture for the
     # serving phase's queries and insert.
     extra = SERVING_ROWS + int(INSERT_SHARE * N_ROWS)
     z = _mixture(N_ROWS + extra, 128, 12)
-    mask_counts, compact_counts, x, delta, compact = phase_main_path(report, z, ptx,
-                                                                     MAIN_SHARE_S - lm_s - train_s - mesh_s - dry_s)
+    mask_counts, compact_counts, x, delta, compact = phase_main_path(
+        report, z, ptx, MAIN_SHARE_S - lm_s - train_s - mesh_s - dry_s - contracts_s)
     log(f"[{elapsed():.1f}s] main path done")
     profile_join(50_000, "mask")
     profile_join(50_000, "compact")

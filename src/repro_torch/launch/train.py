@@ -82,11 +82,13 @@ def _save(args, model, opt_state, step: int, mesh) -> None:
             opt_state.step, model.gather_tree(opt_state.mu), model.gather_tree(opt_state.nu),
             None if opt_state.ef_residual is None else model.gather_tree(opt_state.ef_residual))
         if dist.get_rank() != 0:
+            # spjoin-lint-torch: allow[collective-site] -- checkpoint fence: wait for rank 0's write, once a save
             dist.barrier()
             return
     path = ckpt_lib.save(args.ckpt_dir, ckpt_lib.TrainState(params, opt_state, step, step * args.global_batch, 0))
     print(f"[ckpt] {path}", flush=True)
     if mesh is not None:
+        # spjoin-lint-torch: allow[collective-site] -- checkpoint fence: rank 0 has written, once a save
         dist.barrier()
 
 

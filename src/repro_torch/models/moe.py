@@ -17,8 +17,10 @@ only its ``n_experts / n_model`` experts (non-local assignments go to the
 dropped bucket), and one all-reduce SUM over the "model" group combines the
 partial outputs; the load-balance loss is averaged over the batch axes.
 The reference's ``compat.shard_map`` has no torch counterpart: the branch
-calls the mesh's process groups itself (``collectives``). Without a mesh
-the path is the single-card one, op for op.
+calls the mesh's process groups itself (``collectives``). Under any other
+mesh the local path runs on the rank's batch rows, with the load-balance
+loss's means taken over the global batch, as GSPMD gives the reference.
+Without a mesh the path is the single-card one, op for op.
 """
 from __future__ import annotations
 
@@ -60,22 +62,27 @@ def top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
     return w[..., :k], idx[..., :k]
 
 
-def _dispatch_group(params, xg: Tensor, cfg) -> tuple[Tensor, Tensor]:
-    """One token group. xg: (B, gs, d) -> (y (B, gs, d), aux_loss scalar)."""
-    y, aux = _dispatch_group_ep(params, xg, cfg, 0, cfg.n_experts)
+def _dispatch_group(params, xg: Tensor, cfg, batch_mean=None) -> tuple[Tensor, Tensor]:
+    """One token group. xg: (B, gs, d) -> (y (B, gs, d), aux_loss scalar).
+    ``batch_mean``: see ``_dispatch_group_ep``."""
+    y, aux = _dispatch_group_ep(params, xg, cfg, 0, cfg.n_experts, batch_mean)
     if cfg.n_shared_experts:
         y = y + layers.mlp(params["shared"], xg, "swiglu")
     return y, aux
 
 
-def _dispatch_group_ep(params, xg: Tensor, cfg, e_offset: int, n_local: int) -> tuple[Tensor, Tensor]:
+def _dispatch_group_ep(params, xg: Tensor, cfg, e_offset: int, n_local: int,
+                       batch_mean=None) -> tuple[Tensor, Tensor]:
     """One token group through experts [e_offset, e_offset + n_local) only
     (``params``' gate/up/down hold those ``n_local`` experts): routing is
     computed in full, assignments to other experts go to the dropped
     bucket with those past capacity, and the output is this slice's
     partial combine (no shared experts). Summed over a partition of the
     experts it is ``_dispatch_group``'s routed output; with
-    ``(0, n_experts)`` it is that output op for op.
+    ``(0, n_experts)`` it is that output op for op. ``batch_mean``, when
+    given, maps this rank's (2E,) ``me ‖ ce`` to their means over the
+    batch shards (``xg`` is then one shard of the global batch), so the
+    aux loss is the global batch's product of means.
     xg: (B, gs, d) -> (y (B, gs, d), aux_loss scalar)."""
     B, gs, d = xg.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -89,6 +96,8 @@ def _dispatch_group_ep(params, xg: Tensor, cfg, e_offset: int, n_local: int) -> 
     # Switch-style load-balance loss: E * sum_e f_e * P_e.
     me = probs.mean((0, 1))
     ce = F.one_hot(idx, E).float().sum(2).mean((0, 1))
+    if batch_mean is not None:
+        me, ce = batch_mean(torch.cat([me, ce])).split(E)
     aux = E * (me * ce).sum()
 
     # ---- rank of each (token, choice) within its expert ------------------
@@ -179,17 +188,29 @@ def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Ten
     ``n_experts``, the expert-parallel branch: ``x`` is this rank's batch
     rows (replicated over "model"), the rank dispatches to its experts
     only, one all-reduce SUM over "model" combines the partial outputs,
-    the aux loss is averaged over the batch axes, and the shared experts
-    run on ``x`` after the combine. Under a mesh without that axis the
-    local path runs on the rank's rows and the aux loss is averaged over
-    the batch axes too."""
+    the aux loss is averaged over the batch axes (the reference ``pmean``s
+    each shard's loss there), and the shared experts run on ``x`` after
+    the combine.
+
+    Under any other mesh the local path runs on the rank's batch rows. As
+    under the reference's GSPMD, each group's ``me`` and ``ce`` are means
+    over the global batch: one all-reduce SUM of the 2E floats ``me ‖ ce``
+    per group and per mesh axis of "act_batch" (``collectives.batch_mean``),
+    before the product. Every rank then holds the global aux loss, and its
+    backward gives its own rows' share (the all-reduce's gradient is the
+    identity, and ``gather_param``'s backward sums each parameter's
+    gradient over the batch axes)."""
     mesh = base.current_mesh()
     n_model = _ep_model_size(cfg)
     if n_model is None:
-        y, aux = _moe_groups(params, x, cfg, group_size, _dispatch_group)
-        if mesh is not None:
-            aux = collectives.batch_mean(aux, mesh, base.current_act_rules()["act_batch"])
-        return y, aux
+        if mesh is None:
+            return _moe_groups(params, x, cfg, group_size, _dispatch_group)
+        axes = base.current_act_rules()["act_batch"]
+
+        def local(pp, xg, cfg_):
+            return _dispatch_group(pp, xg, cfg_, lambda t: collectives.batch_mean(t, mesh, axes))
+
+        return _moe_groups(params, x, cfg, group_size, local)
     n_local = cfg.n_experts // n_model
     e_off = collectives.coordinate(mesh, "model") * n_local
     model = collectives.axis_groups(mesh, ("model",))

@@ -88,6 +88,49 @@ def moe_remat_job(spec: dict) -> dict:
     return out
 
 
+def moe_aux_job(spec: dict) -> dict:
+    """The MoE's local path under the "fsdp" profile on a (2, 2) mesh
+    (batch rows over all 4 ranks; "model" carries batch, so no expert
+    parallelism): (a) one gradient of the mesh loss of reduced
+    deepseek-moe-16b at the spec's ``aux_weight``: loss, aux, the
+    collectives of the step, and the routed weights' gradients gathered
+    whole; (b) ``moe_block`` on this rank's rows of the spec's block
+    inputs: output, aux, the collectives of the forward, and this rank's
+    share of the gradients of sum(y · cot) + c · aux."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    cfg = dataclasses.replace(configs.get_reduced(spec["arch"]), **spec["cfg"])
+    pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+    full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
+    model = transformer.ShardedTransformer(cfg, full, mesh, profile="fsdp")
+    scfg = ts.StepConfig(aux_weight=spec["aux_weight"])
+    grad_fn = ts.make_grad_fn(cfg, scfg, ts.make_mesh_loss_fn(cfg, scfg))
+    batch = {k: v.to_local() for k, v in pipe.device_batch(0, mesh, model.batch_axes).items()}
+    collectives.reset_collective_counts()
+    total, metrics, grads = grad_fn(model, batch)
+    step_counts = collectives.collective_counts()
+    whole = dict(transformer._paths(model.gather_tree(base.tree_unflatten(model.param_tree(), grads))))
+    out = {"step": {"total": float(total), "loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
+                    "collectives": step_counts,
+                    "grads": {"/".join(p): _np(g) for p, g in whole.items() if p[:2] == ("layers", "moe")
+                              and p[2] in ("router", "gate", "up", "down")}}}
+    blk = spec["block"]
+    bcfg = dataclasses.replace(configs.get_reduced(spec["arch"]), **blk["cfg"])
+    d, m = mesh.get_coordinate()
+    rows = blk["x"].shape[0] // 4
+    lo = (d * 2 + m) * rows  # the batch axes ("data", "model") split the rows major to minor
+    params = base.tree_map(lambda a: torch.tensor(a, requires_grad=True), blk["params"])
+    x = torch.tensor(blk["x"][lo : lo + rows], requires_grad=True)
+    collectives.reset_collective_counts()
+    with base.use_mesh(mesh, base.FSDP_ACT_RULES):
+        y, aux = moe.moe_block(params, x, bcfg, group_size=blk["group_size"])
+    fwd_counts = collectives.collective_counts()
+    (y * torch.as_tensor(blk["cot"][lo : lo + rows])).sum().add(blk["aux_c"] * aux).backward()
+    out["block"] = {"rows": (lo, lo + rows), "y": _np(y), "aux": float(aux.detach()), "collectives": fwd_counts,
+                    "bwd_collectives": collectives.collective_counts(), "x_grad": _np(x.grad),
+                    "grads": {k: _np(params[k].grad) for k in ("router", "gate", "up", "down")}}
+    return out
+
+
 def ep_job(spec: dict) -> dict:
     """The expert-parallel ``moe_block`` on (1, 4) and (2, 2) meshes, on
     this rank's batch rows: its output, aux loss, and the gradients of
@@ -191,8 +234,8 @@ def launcher_job(spec: dict) -> dict:
     return {"straight": straight, "failed": failed, "resumed": resumed}
 
 
-JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "ep": ep_job, "batch": batch_job, "shard_act": shard_act_job,
-        "guard": guard_job, "launcher": launcher_job}
+JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "ep": ep_job,
+        "batch": batch_job, "shard_act": shard_act_job, "guard": guard_job, "launcher": launcher_job}
 
 
 def rank_main(rank: int, init_file: str, out_dir: str, specs: dict) -> None:

@@ -13,17 +13,21 @@ CPU with gloo.
   l1/l2/linf, self and R×S, mask and compact emission, lpt and contiguous
   placement; a forced-overflow compact join; the contract's collective
   counts per stage call; ``DistIndex`` against ``MetricIndex`` on 4 ranks.
-* ``DistIndex`` on a world of 1, and the collective budget of each stage.
+* ``DistIndex`` on a world of 1, and the collective budget of each stage,
+  read from the contract checker's budgets (the reference's baseline and
+  the port's own budget file), not written here.
 
 δ is set in the middle of a gap between neighbouring pair distances, so no
 pair lies within fp reach of δ and every path must agree byte for byte.
 """
 import datetime
 import functools
+import importlib.util
 import multiprocessing as mp
 import os
 import pickle
 import traceback
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -231,6 +235,18 @@ def _check_verify_stage(cross, strategy, far):
 # ---------------------------------------------------------------------------
 
 
+def _budgets():
+    """The contract checker's budgets (``tools/spjoin_lint_torch/budgets.py``:
+    the reference's ``contracts_baseline.json`` mapped onto the port's
+    counted names, and the port's own ``port_budgets.json``), loaded by
+    file location: it imports nothing of its package."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "spjoin_lint_torch" / "budgets.py"
+    spec = importlib.util.spec_from_file_location("spjoin_lint_torch_budgets", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_stage_collective_budgets(world1):
     x, r, s, q, _ = _sets()
     delta = _delta("l1", False)
@@ -247,8 +263,9 @@ def test_stage_collective_budgets(world1):
             plan, distributed.VerifyConfig(cap_v=len(r), cap_w=len(s), prune="pivot"), cross=True,
         )(*rt_, *st_),
     }
-    want = {"stats": {"stats.all_gather": 3}, "counts": {"counts.all_gather": 4},
-            "verify": {"verify.all_to_all": 6}, "verify R×S": {"verify.all_to_all": 6}}
+    budgets = _budgets()
+    want = {"stats": budgets.stage_budget("stage_stats"), "counts": budgets.stage_budget("stage_counts"),
+            "verify": budgets.stage_budget("stage_verify"), "verify R×S": budgets.stage_budget("stage_verify_cross")}
     for name, call in calls.items():
         distributed.reset_collective_counts()
         call()
@@ -257,7 +274,8 @@ def test_stage_collective_budgets(world1):
     didx = idx.to_distributed()
     distributed.reset_collective_counts()
     didx.query_batch(q)
-    assert distributed.collective_counts() == {"serve.all_to_all": 3, "result.all_gather": 2}
+    assert distributed.collective_counts() == {**budgets.stage_budget("stage_serve"),
+                                               **budgets.port_budget("DistIndex.query_batch")}
 
 
 # ---------------------------------------------------------------------------

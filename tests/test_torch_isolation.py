@@ -1,6 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, in
-``chip_smoke.py`` or in the port's examples imports JAX or the JAX package, and the package loads in
-a process where importing ``jax`` fails."""
+``chip_smoke.py``, in the port's examples or in its contract checker
+(``tools/spjoin_lint_torch/``) imports JAX, the JAX package or the
+reference's checker ``spjoin_lint``, and the package loads in a process
+where importing ``jax`` fails."""
 import ast
 import os
 import subprocess
@@ -10,9 +12,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "spjoin_lint")
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "examples").glob("*_torch.py")))
+         + sorted((ROOT / "examples").glob("*_torch.py"))
+         + sorted((ROOT / "tools" / "spjoin_lint_torch").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -27,13 +27,21 @@ the JAX side is computed here.
   moves a weight by lr whether its gradient is one quantum or zero). A
   third runs the fsdp profile: batch rows over all 4 ranks, each weight
   sharded on one dim over ("data", "model"), the port's bounds.
+* The MoE's local path under "fsdp" (batch rows over all 4 ranks): reduced
+  deepseek-moe-16b at act fp32 and aux_weight 0.01, one mesh gradient
+  against the single-process port on the whole batch (loss, aux, the routed
+  weights' gradients; the step's collectives equal the contract checker's
+  budget), and ``moe_block`` on the EP test's inputs against the whole
+  batch and the reference's ``_dispatch_group`` aux; the tolerances are
+  stated in each test.
 * Reduced deepseek-moe-16b at act fp32 under remat "full" and "dots" on the (2, 2)
   mesh ("tp": the expert-parallel MoE over "model"), two steps, against
   the single-process port with the stablelm case's bounds. The
   checkpointed bodies are recomputed in the backward pass, outside the
   forward's ``use_mesh``; the recompute must take the same MoE branch as
-  the forward. ``aux_weight`` 0: the load-balance loss is a product of
-  batch means, so a batch-sharded mesh gives another value (ROADMAP §3).
+  the forward. ``aux_weight`` 0: the expert-parallel branch averages the
+  batch shards' losses, as the reference's ``pmean`` does, which is not
+  the whole batch's product of means.
 * Each rank's parameter and ``mu`` shapes are its shards under
   ``make_shardings``, and together the ranks hold each leaf once per
   replica.
@@ -53,8 +61,10 @@ the JAX side is computed here.
   straight run's second loss (rtol 1e-6; measured equal).
 """
 import dataclasses
+import importlib.util
 import multiprocessing as mp
 import pickle
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -82,6 +92,7 @@ DP_TP = dict(arch="stablelm-3b", steps=2, batch=4, seq=32,
                        "fsdp": (1, False, "fsdp")})  # (n_micro, compress_grads, profile)
 MOE_REMAT = dict(arch="deepseek-moe-16b", cfg=dict(act_dtype="float32"), remats=("full", "dots"), seed=1,
                  steps=2, batch=4, seq=32, opt=DP_TP["opt"], aux_weight=0.0)
+MOE_AUX = dict(arch="deepseek-moe-16b", cfg=dict(act_dtype="float32"), seed=1, batch=8, seq=32, aux_weight=0.01)
 EP_CFG = dict(n_experts=8, top_k=2, n_shared_experts=2, capacity_factor=8.0)
 LAUNCH_ARGV = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--steps", "2",
                "--global-batch", "4", "--seq-len", "32", "--log-every", "1"]
@@ -116,8 +127,9 @@ def world(tmp_path_factory):
     """Every job in one spawned 4-rank gloo world; per-rank results."""
     tmp = tmp_path_factory.mktemp("mesh4")
     _, params = _ref_weights(DP_TP["arch"])
-    specs = {"dp_tp": dict(DP_TP, params=params), "moe_remat": MOE_REMAT, "ep": _ep_inputs(), "batch": {}, "shard_act": {},
-             "guard": {}, "launcher": dict(argv=LAUNCH_ARGV, tmp=str(tmp))}
+    specs = {"dp_tp": dict(DP_TP, params=params), "moe_remat": MOE_REMAT, "moe_aux": dict(MOE_AUX, block=_ep_inputs()),
+             "ep": _ep_inputs(), "batch": {}, "shard_act": {}, "guard": {},
+             "launcher": dict(argv=LAUNCH_ARGV, tmp=str(tmp))}
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=ranks.rank_main, args=(r, str(tmp / "rdzv"), str(tmp), specs))
              for r in range(ranks.WORLD)]
@@ -257,6 +269,95 @@ def test_moe_remat_steps_on_mesh_match_single_device(world, remat):
     print(f"moe remat {remat}: params max |d| {worst:.3e}, share within 1 % of lr x steps {share:.5f}")
     assert worst <= 2 * DP_TP["opt"]["lr"] * DP_TP["steps"]
     assert share >= 0.999
+
+
+def _budgets():
+    """The contract checker's budgets (``tools/spjoin_lint_torch/budgets.py``,
+    loaded by file location: it imports nothing of its package)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "spjoin_lint_torch" / "budgets.py"
+    spec = importlib.util.spec_from_file_location("spjoin_lint_torch_budgets", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_moe_aux_on_fsdp_mesh_matches_whole_batch(world):
+    """The MoE's local path under "fsdp" (batch rows over all 4 ranks, no
+    expert parallelism) at aux_weight 0.01: one mesh gradient of reduced
+    deepseek-moe-16b against the single-process port on the whole batch.
+    Loss, total and aux within rel 1e-6; the routed weights' gradients
+    (router, gate, up, down of both MoE layers) within rtol = atol = 1e-5
+    (the ranks' shares are summed in another order). The step's
+    collectives equal the checker's budget. The mean of the batch shards'
+    aux (what the mesh gave before the repair) is another value, by more
+    than 100 times the tolerance."""
+    spec = MOE_AUX
+    cfg = dataclasses.replace(configs.get_reduced(spec["arch"]), **spec["cfg"])
+    pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+    model = train_lib.build_model(cfg, seed=spec["seed"], device="cpu")
+    scfg = ts.StepConfig(aux_weight=spec["aux_weight"])
+    batch = {k: torch.as_tensor(v) for k, v in pipe.global_batch(0).items()}
+    total, metrics, grads = ts.make_grad_fn(cfg, scfg)(model, batch)
+    want = {"/".join(p): _np(g) for p, g in transformer._paths(base.tree_unflatten(model.param_tree(), grads))}
+    budget = _budgets().port_budget("mesh_step[deepseek-moe-16b reduced, fsdp, (2, 2)]")
+    for r in range(ranks.WORLD):
+        res = world[r]["moe_aux"]["step"]
+        print(f"rank {r}: loss {res['loss']!r} vs {float(metrics['loss'])!r}, aux {res['aux']!r} vs "
+              f"{float(metrics['aux'])!r}; collectives {res['collectives']}")
+        assert res["loss"] == pytest.approx(float(metrics["loss"]), rel=1e-6)
+        assert res["aux"] == pytest.approx(float(metrics["aux"]), rel=1e-6)
+        assert res["total"] == pytest.approx(float(total), rel=1e-6)
+        assert sorted(res["grads"]) == [f"layers/moe/{k}" for k in ("down", "gate", "router", "up")]
+        for k, g in res["grads"].items():
+            np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+        assert res["collectives"] == budget
+    rows = spec["batch"] // ranks.WORLD
+    with torch.no_grad():
+        shard_mean = np.mean([float(model({k: v[i * rows : (i + 1) * rows] for k, v in batch.items()
+                                           if k != "labels"})[1]) for i in range(ranks.WORLD)])
+    print(f"whole-batch aux {float(metrics['aux'])!r}, mean of the shards' aux {shard_mean!r}")
+    assert abs(shard_mean - float(metrics["aux"])) > 100 * 1e-6 * float(metrics["aux"])
+
+
+def test_moe_local_block_on_fsdp_mesh_matches_reference(world):
+    """``moe_block``'s local path under "fsdp" on the EP test's inputs (2
+    token groups, one batch row a rank): each rank's output rows equal the
+    whole batch's (rtol = atol = 1e-6), every rank's aux equals the whole
+    batch's aux (rel 1e-6), which equals the mean over the groups of the
+    reference's ``_dispatch_group`` aux on the same weights (rel 1e-5); the
+    ranks' gradients of sum(y · cot) + c · aux summed equal the whole
+    batch's (rtol = atol = 1e-5); the forward makes the checker's budget of
+    all-reduces (one per token group and batch mesh axis) and the backward
+    none."""
+    spec = _ep_inputs()
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **EP_CFG)
+    jcfg = dataclasses.replace(jconfigs.get_reduced("deepseek-moe-16b"), **EP_CFG)
+    params = base.tree_map(lambda a: torch.tensor(a, requires_grad=True), spec["params"])
+    x = torch.tensor(spec["x"], requires_grad=True)
+    gs = spec["group_size"]
+    y, aux = moe.moe_block(params, x, cfg, group_size=gs)
+    (y * torch.as_tensor(spec["cot"])).sum().add(spec["aux_c"] * aux).backward()
+    aux = float(aux.detach())
+    n_groups = x.shape[1] // gs
+    jp = jax.tree.map(jnp.asarray, spec["params"])
+    jaux = np.mean([float(jmoe._dispatch_group(jp, jnp.asarray(spec["x"][:, g * gs : (g + 1) * gs]), jcfg)[1])
+                    for g in range(n_groups)])
+    assert aux == pytest.approx(jaux, rel=1e-5)
+    per = _budgets().port_budget("moe_block.local")
+    n_axes = 2  # "data" and "model": the fsdp profile's batch axes on this mesh
+    summed = {k: np.zeros_like(_np(params[k].grad)) for k in ("router", "gate", "up", "down")}
+    for r in range(ranks.WORLD):
+        res = world[r]["moe_aux"]["block"]
+        lo, hi = res["rows"]
+        np.testing.assert_allclose(res["y"], _np(y)[lo:hi], rtol=1e-6, atol=1e-6)
+        assert res["aux"] == pytest.approx(aux, rel=1e-6)
+        np.testing.assert_allclose(res["x_grad"], _np(x.grad)[lo:hi], rtol=1e-5, atol=1e-5)
+        assert res["collectives"] == {k: v * n_groups * n_axes for k, v in per.items()}
+        assert res["bwd_collectives"] == res["collectives"]
+        for k in summed:
+            summed[k] += res["grads"][k]
+    for k in summed:
+        np.testing.assert_allclose(summed[k], _np(params[k].grad), rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 class _Fake:
