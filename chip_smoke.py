@@ -90,7 +90,11 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    mesh step and the same 2 from a copy of the weights
                    through the single-process step: loss and grad_norm
                    within the stated tolerances (bit equality logged),
-                   s/step of each and the collectives per step; (b)
+                   s/step of each and the collectives per step, equal to
+                   the contract checker's budget for the cell
+                   (tools/spjoin_lint_torch/port_budgets.json: the step
+                   gathers one layer at a time and reduce-scatters its
+                   gradients); (b)
                    deepseek-moe-16b's MoE block at full width (64 experts,
                    top-6, 2 shared, expert d_ff 1408) at fp32: the
                    expert-parallel dispatch of 4 virtual ranks (16 experts
@@ -104,14 +108,16 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    must read 0): (a) the dry run of lm_train's cell on a
                    (1, 1) mesh against one mesh step of it on the card in an
                    NCCL world of 1 after a warm-up step: the FLOPs equal
-                   FlopCounterMode's, the collective counts the card's (38
-                   all-gathers, 34 all-reduces), the predicted peak within
-                   the stated tolerance of max_memory_allocated (the gap
-                   printed); (b) dryrun_opt's train_4k cells of qwen1.5-0.5b
-                   and deepseek-moe-16b on the single-pod (16, 16) mesh:
-                   per-rank FLOPs, peak bytes, fit, bottleneck and
-                   mfu_bound printed. Its seconds come out of the main
-                   path's share too;
+                   FlopCounterMode's, the collective counts the card's and
+                   the budget's (196 all-gathers, 56 all-reduces, 50
+                   reduce-scatters), the predicted peak within the stated
+                   tolerance of max_memory_allocated (the gap printed); (b)
+                   dryrun_opt's train_4k cells of qwen1.5-0.5b and
+                   deepseek-moe-16b on the single-pod (16, 16) mesh:
+                   per-rank FLOPs, peak bytes and split (beside those of
+                   whole-leaf gathering), fit, bottleneck and mfu_bound
+                   printed. Its seconds come out of the main path's share
+                   too;
   contracts      — the port's contract checker (tools/spjoin_lint_torch): its
                    AST layer over src/repro_torch must exit 0; then a mask
                    and a compact l1 join of 50,000 rows (default config)
@@ -235,6 +241,7 @@ from repro_torch.train import checkpoint as lm_ckpt  # noqa: E402
 from repro_torch.train import optimizer as lm_opt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 from spjoin_lint_torch import astlint as lint_ast  # noqa: E402
+from spjoin_lint_torch import budgets as lint_budgets  # noqa: E402
 from spjoin_lint_torch import config as lint_config  # noqa: E402
 
 EPS32 = float(torch.finfo(torch.float32).eps)
@@ -2677,6 +2684,7 @@ LM_MESH_STEPS = 4  # check (a): steps through each path, taken in turns
 LM_MESH_LOSS_REL = 1e-6  # (a): |loss mesh - loss single| / |loss single| at each step; on a
 #   (1, 1) mesh the two paths make the same products in the same order
 LM_MESH_GNORM_REL = 1e-6  # (a): the same for grad_norm
+LM_MESH_BUDGET = "mesh_step[qwen1.5-0.5b, tp, (1, 1)]"  # (a): the step's collectives, port_budgets.json
 LM_MESH_MOE_ARCH = "deepseek-moe-16b"  # check (b): its MoE block at full width
 LM_MESH_MOE_B, LM_MESH_MOE_S = 4, 2048  # (b): tokens of one group (group_size 2048)
 LM_MESH_EP_RANKS = 4  # (b): virtual ranks, 16 experts each
@@ -2692,8 +2700,9 @@ def lm_mesh_steps(mesh, smi: str) -> bool:
     and the same steps from a copy of the weights through the
     single-process path, the two taken in turns (mesh, single; single,
     mesh; ...): loss and grad_norm at each step, s/step of each after the
-    first, the mesh path's collectives per step, then one profiled step of
-    each (device busy, launches, time by kernel)."""
+    first, the mesh path's collectives per step (each equal to the
+    contract checker's LM_MESH_BUDGET), then one profiled step of each
+    (device busy, launches, time by kernel)."""
     cfg = lm_configs.get(LM_ARCH)
     ocfg = lm_opt.OptConfig(total_steps=LM_TRAIN_STEPS, warmup_steps=max(LM_TRAIN_STEPS // 20, 1))
     scfg = ts.StepConfig(n_micro=LM_TRAIN_MICRO)
@@ -2727,7 +2736,8 @@ def lm_mesh_steps(mesh, smi: str) -> bool:
                 colls.append(lm_collectives.collective_counts())
     peak = torch.cuda.max_memory_allocated() / 2**30
     mm, sm = metrics["mesh"], metrics["single"]
-    ok, bit = True, True
+    budget = lint_budgets.port_budget(LM_MESH_BUDGET)
+    ok, bit = all(c == budget for c in colls), True
     for i in range(LM_MESH_STEPS):
         rel_l = abs(mm[i]["total"] - sm[i]["total"]) / abs(sm[i]["total"])
         rel_g = abs(mm[i]["grad_norm"] - sm[i]["grad_norm"]) / abs(sm[i]["grad_norm"])
@@ -2741,7 +2751,9 @@ def lm_mesh_steps(mesh, smi: str) -> bool:
     log(f"[lm_mesh {elapsed():.1f}s] check (a) {cfg.name} {cfg.n_layers} layers on a (1, 1) (data, model) mesh, "
         f"LOGICAL_RULES, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in {LM_TRAIN_MICRO} microbatches: s/step after "
         f"the first: mesh {s_step['mesh']:.4f}, single {s_step['single']:.4f}; collectives per step "
-        f"{json.dumps(colls[-1])}; bit-equal {bit}; peak {peak:.3f} GiB: {'ok' if ok else 'FAILED'}; {smi}")
+        f"{json.dumps(colls[-1])} (budget {json.dumps(budget)}, every step equal "
+        f"{all(c == budget for c in colls)}); bit-equal {bit}; peak {peak:.3f} GiB: {'ok' if ok else 'FAILED'}; "
+        f"{smi}")
     for name, (model, state, step_fn, batch) in runs.items():
         wall, busy, n_launch, per_kernel = lm_train_profile(model, state, step_fn, batch)
         log(f"[lm_mesh {elapsed():.1f}s] profiled {name} step: {wall:.1f} ms, device busy {busy:.1f} ms = "
@@ -2836,6 +2848,16 @@ LM_DRYRUN_PEAK_REL = 0.05  # (a): |predicted peak - card peak| / card peak; the 
 #   allocator rounding and no library workspace (cuBLAS's ~32 MiB), nor a kernel's own scratch
 LM_DRYRUN_OPT_ARCHS = ("qwen1.5-0.5b", "deepseek-moe-16b")  # (b): dryrun_opt's train_4k cells
 LM_DRYRUN_TIMEOUT_S = 300  # each dry-run subprocess
+# (b): dryrun_opt's train_4k records on (16, 16) under whole-leaf gathering (the tree before the
+#   mesh step gathered layer by layer; python -m repro_torch.launch.dryrun_opt --shape train_4k
+#   --single-pod): peak bytes, and the split at the peak in bytes
+LM_DRYRUN_WHOLE_LEAF = {
+    "qwen1.5-0.5b": (14254430740, {"parameters": 7743488, "optimizer": 15486980, "inputs": 32768,
+                                   "activations": 4276304404, "gradients": 0, "temporaries": 9954863100}),
+    "deepseek-moe-16b": (166872072244, {"parameters": 257165312, "optimizer": 514330628, "inputs": 524288,
+                                        "activations": 44, "gradients": 335022084,
+                                        "temporaries": 165765029888}),
+}
 
 
 def lm_dryrun_card_step() -> dict:
@@ -2898,10 +2920,11 @@ def phase_lm_dryrun(smi: str) -> float:
     on the single-pod (16, 16) mesh (deepseek: the expert-parallel branch
     under remat full). (a) holds the dry run's FLOPs equal to
     FlopCounterMode's on the card's step, its collective counts to the
-    card's and lm_mesh's 38 and 34, and its peak within
+    card's and the contract checker's LM_MESH_BUDGET, and its peak within
     LM_DRYRUN_PEAK_REL of the card's; (b) prints each record's per-rank
-    FLOPs, peak, fit, bottleneck and mfu_bound (predictions from the H100
-    SXM's data-sheet constants); (c) the repo's kernels launched 0 times.
+    FLOPs, peak and split beside LM_DRYRUN_WHOLE_LEAF's, fit, bottleneck
+    and mfu_bound (predictions from the H100 SXM's data-sheet constants);
+    (c) the repo's kernels launched 0 times.
     Returns the phase's seconds."""
     log("== lm_dryrun: the dry run on meta in a fake world, against the card")
     t0 = time.perf_counter()
@@ -2936,12 +2959,14 @@ def phase_lm_dryrun(smi: str) -> float:
         prod = _dryrun_records(os.path.join(tmp, "opt.jsonl"))
     assert "error" not in pred, pred.get("traceback")
     gap = (pred["memory"]["peak_bytes"] - card["peak"]) / card["peak"]
-    ok_a = (pred["flops_per_device"] == card["flops"] and pred["coll_counts"] == card["colls"]
-            == {"all_gather": 38, "all_reduce": 34} and abs(gap) <= LM_DRYRUN_PEAK_REL)
+    budget = lint_budgets.port_budget(LM_MESH_BUDGET)
+    ok_a = (pred["flops_per_device"] == card["flops"] and pred["coll_counts"] == card["colls"] == budget
+            and abs(gap) <= LM_DRYRUN_PEAK_REL)
     log(f"[lm_dryrun {elapsed():.1f}s] check (a) {LM_ARCH} {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in "
         f"{LM_TRAIN_MICRO} microbatches on a (1, 1) mesh: FLOPs dry run {pred['flops_per_device']!r} vs card "
         f"FlopCounterMode {card['flops']!r} (equal {pred['flops_per_device'] == card['flops']}); collectives dry "
-        f"run {json.dumps(pred['coll_counts'])} vs card {json.dumps(card['colls'])}; peak dry run "
+        f"run {json.dumps(pred['coll_counts'])} vs card {json.dumps(card['colls'])} vs budget {json.dumps(budget)}; "
+        f"peak dry run "
         f"{pred['memory']['peak_bytes'] / 2**30:.3f} GiB vs card max_memory_allocated {card['peak'] / 2**30:.3f} GiB "
         f"(over what was allocated before; held at the step's start {card['held'] / 2**30:.3f} GiB vs arguments "
         f"{pred['memory']['argument_bytes'] / 2**30:.3f} GiB): gap {gap:+.4f} (bar {LM_DRYRUN_PEAK_REL}); split "
@@ -2961,8 +2986,11 @@ def phase_lm_dryrun(smi: str) -> float:
             f"dot traffic {rec['dot_traffic_per_device']:.4e} B, bottleneck {rec['roofline']['bottleneck']}, "
             f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, mfu_bound {rec['mfu_bound']:.4f} (H100 SXM "
             f"data-sheet constants, predictions); built {rec['build_s']}s, step {rec['step_s']}s")
-        log(f"  split {json.dumps({k: round(v / 2**30, 3) for k, v in rec['memory']['split'].items()})} GiB; "
-            f"roofline {json.dumps({k: v for k, v in rec['roofline'].items() if k != 'bottleneck'})}")
+        was_peak, was_split = LM_DRYRUN_WHOLE_LEAF[rec["arch"]]
+        log(f"  peak {rec['memory']['peak_bytes'] / 1e9:.1f} GB (whole-leaf gathering {was_peak / 1e9:.1f} GB); split "
+            f"{json.dumps({k: round(v / 2**30, 3) for k, v in rec['memory']['split'].items()})} GiB (whole-leaf "
+            f"gathering {json.dumps({k: round(v / 2**30, 3) for k, v in was_split.items()})} GiB); roofline "
+            f"{json.dumps({k: v for k, v in rec['roofline'].items() if k != 'bottleneck'})}")
     counts = ops.launch_counts()
     log(f"[lm_dryrun {elapsed():.1f}s] check (c) launch counts of the repo's kernels {json.dumps(counts)} "
         "(the dry run's path runs none of the five)")

@@ -19,10 +19,10 @@ process group.
 
 The rank's inputs are the rows the port's mesh path gives it: dim 0 of the
 batch over the profile's batch axes (``shardings.batch_spec``: replicated
-where they do not divide it). Under per-leaf gathering every rank computes
-whole leaves, so a decode state holds the rank's batch rows with every
-head (``"state_layout": "rows"``), not the reference's
-``state_shardings``.
+where they do not divide it). Under layer-by-layer gathering every rank
+computes on whole leaves, one layer at a time, so a decode state holds the
+rank's batch rows with every head (``"state_layout": "rows"``), not the
+reference's ``state_shardings``.
 
 The record keeps the reference's keys where they mean the same thing, per
 rank and per step: ``memory.{argument_bytes, output_bytes, temp_bytes,

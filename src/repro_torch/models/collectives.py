@@ -5,17 +5,23 @@ explicit ``psum`` in the MoE's ``shard_map``). The port computes on
 rank-local blocks instead, and makes each collective itself, over the
 process group of one mesh axis (``DeviceMesh.get_group(axis)``):
 
-  gather_param   a leaf's full value from this rank's shard (all-gathers
-                 along the sharded mesh dims); its backward sums the full
-                 gradient over the batch axes (all-reduce) and keeps this
-                 rank's shard of it
+  LayerGather    one layer's leaves whole from this rank's blocks: per
+                 mesh dim, one all-gather of every leaf sharded along it,
+                 flattened into one buffer. Its backward takes each
+                 gradient straight to this rank's block, one mesh dim at a
+                 time, major to minor: along a batch axis that shards a
+                 leaf a reduce-scatter (one for the layer's leaves), along
+                 a dim that shards it but carries no batch this rank's
+                 block with no sum, and along a batch axis on which it is
+                 replicated an all-reduce of the block (one for those
+                 leaves). No whole leaf's gradient is ever all-reduced.
   reduce_sum     all-reduce SUM forward, identity backward
   copy_to        identity forward, all-reduce SUM backward
   scale_grad     identity forward, the gradient scaled backward
 
 Gradient convention: every rank computes the GLOBAL objective's value, and
 its backward gives the contribution of the rows it holds. Gradients are
-then summed over the batch axes (``gather_param``'s backward); ranks that
+then summed over the batch axes (``LayerGather``'s backward); ranks that
 differ only along a replicated axis ("model" under the tensor-parallel
 rules) hold the same rows and compute the same gradient, so nothing is
 summed over it. ``reduce_sum`` is the forward of a quantity summed over
@@ -28,7 +34,8 @@ Every collective is counted (``collective_counts``), as the distributed
 executor counts its own, with its wire bytes per rank beside the count
 (``collective_bytes``; the reference's ring formulas, ``hloparse.py``):
 an all-gather of a result of R bytes over g ranks moves (g - 1) / g · R,
-an all-reduce of S bytes 2 (g - 1) / g · S.
+an all-reduce of S bytes 2 (g - 1) / g · S, a reduce-scatter of an input
+of S bytes (g - 1) / g · S.
 """
 from __future__ import annotations
 
@@ -41,8 +48,8 @@ from repro_torch.models import base
 
 Tensor = torch.Tensor
 
-_COUNTS = {"all_gather": 0, "all_reduce": 0}
-_BYTES = {"all_gather": 0.0, "all_reduce": 0.0}
+_COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0}
+_BYTES = {"all_gather": 0.0, "all_reduce": 0.0, "reduce_scatter": 0.0}
 
 
 def collective_counts() -> dict[str, int]:
@@ -66,6 +73,27 @@ def _all_reduce(x: Tensor, group, op=dist.ReduceOp.SUM) -> None:
     _COUNTS["all_reduce"] += 1
     _BYTES["all_reduce"] += 2 * (g - 1) / g * x.numel() * x.element_size()
     dist.all_reduce(x, op=op, group=group)
+
+
+def _all_gather_rows(x: Tensor, group) -> Tensor:
+    """(g, n): every rank's ``x`` (n elements, contiguous) as a row, in
+    the group's rank order."""
+    g = dist.get_world_size(group)
+    out = torch.empty(g * x.numel(), dtype=x.dtype, device=x.device)
+    _COUNTS["all_gather"] += 1
+    _BYTES["all_gather"] += (g - 1) * x.numel() * x.element_size()  # (g - 1) / g of the result
+    dist.all_gather_into_tensor(out, x.view(-1), group=group)
+    return out.view(g, -1)
+
+
+def _reduce_scatter(x: Tensor, group) -> Tensor:
+    """This rank's row of ``x`` (g, n) summed over the group's ranks."""
+    g = dist.get_world_size(group)
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    _COUNTS["reduce_scatter"] += 1
+    _BYTES["reduce_scatter"] += (g - 1) / g * x.numel() * x.element_size()
+    dist.reduce_scatter_tensor(out, x.view(-1), group=group)
+    return out
 
 
 def axis_groups(mesh, axes) -> list:
@@ -179,25 +207,115 @@ def gather_full(local: Tensor, placements: tuple, mesh) -> Tensor:
     return t
 
 
-class _GatherParam(torch.autograd.Function):
+def _flat(ts: list[Tensor]) -> Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+class _LayerPlan:
+    """Where each leaf of one gather lies on the mesh: per mesh dim, its
+    group and size, whether it is a batch axis, this rank's coordinate on
+    it, the leaves gathered along it (with the tensor dim each shards) and
+    the leaves a batch axis replicates."""
+
+    def __init__(self, placements: list, mesh, batch_axes, keep_local: list):
+        names = list(base.axis_sizes(mesh))
+        self.groups = [mesh.get_group(i) for i in range(len(names))]
+        self.sizes = [dist.get_world_size(g) for g in self.groups]
+        self.coord = list(mesh.get_coordinate())
+        self.batch = [a in batch_axes for a in names]
+        self.sharded: list[list[tuple[int, int]]] = [[] for _ in names]
+        self.replicated: list[list[int]] = [[] for _ in names]
+        for j, (pls, keep) in enumerate(zip(placements, keep_local)):
+            for i, pl in enumerate(pls):
+                if names[i] in keep:
+                    if self.batch[i]:
+                        raise ValueError(f"a leaf kept local along batch axis {names[i]!r}")
+                elif pl.is_shard():
+                    self.sharded[i].append((j, pl.dim))
+                elif self.batch[i]:
+                    self.replicated[i].append(j)
+
+    def gather(self, ts: list[Tensor]) -> list[Tensor]:
+        """Each leaf whole from its block: minor to major, one all-gather
+        per mesh dim over the leaves sharded along it."""
+        ts = list(ts)
+        for i in reversed(range(len(self.sharded))):
+            if not self.sharded[i]:
+                continue
+            rows = _all_gather_rows(_flat([ts[j] for j, _ in self.sharded[i]]), self.groups[i])
+            g = self.sizes[i]
+            parts = rows.split([ts[j].numel() for j, _ in self.sharded[i]], dim=1)
+            for (j, d), part in zip(self.sharded[i], parts):
+                shape = ts[j].shape  # rank r's block is at r along dim d
+                whole = (*shape[:d], g * shape[d], *shape[d + 1 :])
+                ts[j] = part.reshape(whole) if d == 0 else part.reshape(g, *shape).movedim(0, d).reshape(whole)
+        return ts
+
+    def reduce(self, grads: list[Tensor]) -> list[Tensor]:
+        """Each whole gradient to this rank's block, major to minor (the
+        gather's reverse): along a dim that shards a leaf, a reduce-scatter
+        of the leaves' blocks where it is a batch axis, else this rank's
+        block; along a batch axis that replicates a leaf, one all-reduce
+        of those leaves."""
+        gs = list(grads)
+        for i in range(len(self.sharded)):
+            g = self.sizes[i]
+            if self.sharded[i] and not self.batch[i]:  # rank r's block is chunk r of dim d
+                for j, d in self.sharded[i]:
+                    gs[j] = gs[j].chunk(g, dim=d)[self.coord[i]].contiguous()
+            elif self.sharded[i]:
+                blocks, rows = [], []
+                for j, d in self.sharded[i]:
+                    shape = gs[j].shape
+                    block = (*shape[:d], shape[d] // g, *shape[d + 1 :])
+                    blocks.append(block)
+                    rows.append(gs[j].reshape(g, -1) if d == 0 else
+                                gs[j].reshape(*shape[:d], g, *block[d:]).movedim(d, 0).reshape(g, -1))
+                mine = _reduce_scatter(torch.cat(rows, dim=1), self.groups[i])
+                del rows
+                for (j, _), block, part in zip(self.sharded[i], blocks,
+                                               mine.split([math.prod(b) for b in blocks])):
+                    gs[j] = part.view(block)
+            if self.replicated[i]:
+                idx = self.replicated[i]
+                flat = _flat([gs[j] for j in idx])
+                _all_reduce(flat, self.groups[i])
+                for j, part in zip(idx, flat.split([gs[j].numel() for j in idx])):
+                    gs[j] = part.view(gs[j].shape)
+        return gs
+
+
+class _GatherLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, placements, mesh, batch_groups):
-        ctx.placements, ctx.mesh, ctx.batch_groups = placements, mesh, batch_groups
-        return gather_full(local, placements, mesh)
+    def forward(ctx, plan, *local):
+        ctx.plan = plan
+        return tuple(plan.gather(local))
 
     @staticmethod
-    def backward(ctx, grad):
-        g = grad.contiguous().clone()
-        for grp in ctx.batch_groups:
-            _all_reduce(g, grp)
-        return shard_local(g, ctx.placements, ctx.mesh).contiguous(), None, None, None
+    def backward(ctx, *grads):
+        return (None, *ctx.plan.reduce(grads))
 
 
-def gather_param(local: Tensor, placements: tuple, mesh, batch_groups: list) -> Tensor:
-    """A leaf's full value from this rank's shard; the gradient of the full
-    value is summed over ``batch_groups`` and this rank's shard of it
-    reaches ``local``."""
-    return _GatherParam.apply(local, placements, mesh, list(batch_groups))
+class LayerGather:
+    """The gather of one structure of leaves (one layer of a stack, or the
+    leaves outside the layer stacks), planned once from their
+    ``placements`` (nested dicts of per-leaf placements): called on this
+    rank's blocks (the same structure), it returns the leaves whole, with
+    one all-gather per mesh dim that shards any of them. The backward
+    gives each block its gradient (module docstring): summed over
+    ``batch_axes``, never whole on the wire. ``keep_local``: {leaf path (a
+    tuple of keys): mesh axis names} along which a leaf stays this rank's
+    block, neither gathered nor summed (the routed experts along "model"
+    under expert parallelism)."""
+
+    def __init__(self, placements: dict, mesh, batch_axes, keep_local: dict | None = None):
+        paths: list = []  # (key path, placements) in base.tree_leaves' order; a tuple is a leaf here
+        base.tree_map_with_path(lambda p, pl: paths.append((p, pl)), placements)
+        keep = [tuple((keep_local or {}).get(p, ())) for p, _ in paths]
+        self.plan = _LayerPlan([pl for _, pl in paths], mesh, tuple(batch_axes), keep)
+
+    def __call__(self, local: dict) -> dict:
+        return base.tree_unflatten(local, _GatherLayer.apply(self.plan, *base.tree_leaves(local)))
 
 
 class LeafShards:

@@ -33,6 +33,7 @@ from repro_torch.models import base, collectives, layers
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
+ROUTED = ("gate", "up", "down")  # the routed experts' leaves, (E, ...) each
 
 
 def moe_defs(cfg) -> dict:
@@ -160,11 +161,13 @@ def _moe_groups(params, x: Tensor, cfg, group_size: int, dispatch_fn) -> tuple[T
     return torch.stack(ys, dim=1).reshape(B, S, d), aux / nG
 
 
-def _ep_model_size(cfg) -> int | None:
+def ep_model_size(cfg) -> int | None:
     """The "model" axis' size when ``moe_block`` takes the expert-parallel
     branch: a current mesh with a "model" axis that divides ``n_experts``
     and activation rules that replicate activations over it (under the
-    FSDP profile "model" carries batch, and the local path runs)."""
+    FSDP profile "model" carries batch, and the local path runs). The
+    mesh step asks it too, to keep each rank's routed experts ungathered
+    (``transformer.ShardedTransformer.gather_layer``)."""
     mesh = base.current_mesh()
     if mesh is None or base.current_act_rules().get("act_model") is None:
         return None
@@ -175,7 +178,8 @@ def _ep_model_size(cfg) -> int | None:
 
 
 def _local_experts(w: Tensor, e_offset: int, n_local: int) -> Tensor:
-    """This rank's experts of a routed weight held whole or as its shard."""
+    """This rank's experts of a routed weight held whole or as its shard
+    (the mesh step hands down the shard)."""
     return w if w.shape[0] == n_local else w[e_offset : e_offset + n_local]
 
 
@@ -198,10 +202,10 @@ def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Ten
     per group and per mesh axis of "act_batch" (``collectives.batch_mean``),
     before the product. Every rank then holds the global aux loss, and its
     backward gives its own rows' share (the all-reduce's gradient is the
-    identity, and ``gather_param``'s backward sums each parameter's
-    gradient over the batch axes)."""
+    identity, and ``collectives.LayerGather``'s backward sums each
+    parameter's gradient over the batch axes)."""
     mesh = base.current_mesh()
-    n_model = _ep_model_size(cfg)
+    n_model = ep_model_size(cfg)
     if n_model is None:
         if mesh is None:
             return _moe_groups(params, x, cfg, group_size, _dispatch_group)
@@ -215,7 +219,7 @@ def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Ten
     e_off = collectives.coordinate(mesh, "model") * n_local
     model = collectives.axis_groups(mesh, ("model",))
     routed = {"router": collectives.copy_to(params["router"], model)}
-    for key in ("gate", "up", "down"):
+    for key in ROUTED:
         routed[key] = _local_experts(params[key], e_off, n_local)
 
     def dispatch(pp, xg, cfg_):

@@ -20,10 +20,12 @@ layout. ``Transformer`` holds it in one of two ways:
               activation dtype at each use is cast once; the leaves it
               reads in fp32 stay fp32 (``serving_dtype``);
   trainable   each leaf is ONE fp32 ``nn.Parameter`` in the reference's
-              layout, stacks included; the forward takes the per-layer
-              views ``stack[i]`` as it runs (so the gradients land in the
-              stacked leaves, leaf for leaf with the optimizer's state)
-              and casts each weight to the activation dtype at each use.
+              layout, stacks included; the forward takes per-layer views
+              of each stack, all of them from one ``stack.unbind(0)`` (so
+              the gradients land in the stacked leaves, leaf for leaf with
+              the optimizer's state, and a stack's gradient is its layers'
+              stacked once, never a zero-padded stack per layer) and casts
+              each weight to the activation dtype at each use.
               ``cfg.remat`` wraps the layer bodies the reference wraps in
               ``jax.checkpoint`` in ``torch.utils.checkpoint``.
 
@@ -207,13 +209,36 @@ def _as_dict(node: Node) -> dict:
     return {k: out[k] for k in sorted(out)}
 
 
-def _views(tree: PyTree, depth: int):
+def _views(tree: PyTree, depth: int, wrap: Callable | None = None):
     """``depth`` stacked axes of ``tree`` as nested lists of per-layer
-    views (``stack[i]``: no copy, and the gradient flows to the stack)."""
+    dicts of views, each leaf unbound once (``leaf.unbind(0)``: no copy,
+    one backward node per stack, which stacks the layers' gradients once);
+    ``wrap`` maps each innermost dict."""
     if not depth:
-        return tree
-    n = _first_leaf(tree).shape[0]
-    return [_views(_unstack(tree, i), depth - 1) for i in range(n)]
+        return tree if wrap is None else wrap(tree)
+    paths = _paths(tree)
+    cols = [leaf.unbind(0) for _, leaf in paths]
+    return [_views(base.tree_unflatten(tree, [c[i] for c in cols]), depth - 1, wrap)
+            for i in range(len(cols[0]))]
+
+
+class _LayerShards:
+    """One layer's leaves as this rank's blocks (per-layer views of the
+    local stack ``key``) and the ``ShardedTransformer`` that gathers them;
+    a body gathers them whole as it starts (``_whole``)."""
+
+    __slots__ = ("local", "key", "model")
+
+    def __init__(self, local: dict, key: str, model):
+        self.local, self.key, self.model = local, key, model
+
+
+def _whole(lp):
+    """A layer's leaves whole: gathered when ``lp`` holds shards, else
+    ``lp`` itself (a single-process view or a serving ``Node``)."""
+    if isinstance(lp, _LayerShards):
+        return lp.model.gather_layer(lp.local, lp.key)
+    return lp
 
 
 class Transformer(nn.Module):
@@ -230,8 +255,8 @@ class Transformer(nn.Module):
     where it is not held so already).
 
     ``trainable=True``: each leaf one fp32 ``nn.Parameter`` with
-    ``requires_grad``, stacks whole (``param_tree``); the forward indexes
-    the per-layer views while it runs and honours ``cfg.remat``."""
+    ``requires_grad``, stacks whole (``param_tree``); the forward runs on
+    per-layer views of the stacks (``_views``) and honours ``cfg.remat``."""
 
     def __init__(self, cfg: ArchConfig, params: PyTree, *, trainable: bool = False):
         super().__init__()
@@ -289,6 +314,15 @@ def _paths(tree: PyTree, path: tuple[str, ...] = ()) -> list:
     return [(path, tree)]
 
 
+def _layer_placement(placements: tuple, depth: int) -> tuple:
+    """A stacked leaf's placements for one of its layers: the leading
+    ``depth`` "layers" dims (never sharded) dropped."""
+    from torch.distributed.tensor import Shard
+
+    assert not any(p.is_shard() and p.dim < depth for p in placements), placements
+    return tuple(Shard(p.dim - depth) if p.is_shard() else p for p in placements)
+
+
 def _zip_map(fn, a: PyTree, b: PyTree) -> PyTree:
     """``fn(x, y)`` over the leaves of two nested dicts of one structure."""
     if isinstance(a, dict):
@@ -303,15 +337,26 @@ class ShardedTransformer(Transformer):
     ``params`` is the full tree (the reference's layout), the same on every
     rank; each rank keeps a copy of its block of every leaf, so the
     parameters, their gradients and every optimizer state built from
-    ``param_tree()`` hold only this rank's shards. The forward gathers each
-    leaf whole (``collectives.gather_param``: all-gathers along its sharded
-    mesh dims) and computes on the rank's batch rows under
-    ``base.use_mesh(mesh, act_rules)`` (``decode_step`` too); the backward sums each leaf's full
-    gradient over the batch axes and keeps this rank's shard of it. Every
-    logit row is whole on its rank, so the cross entropy's logsumexp sees
-    the full vocabulary. ``profile`` picks the parameter rules, the
-    activation rules and the batch axes (``base.rules_for_profile``: "tp",
-    "fsdp" or "fsdp_sp")."""
+    ``param_tree()`` hold only this rank's shards. The forward computes on
+    the rank's batch rows under ``base.use_mesh(mesh, act_rules)``
+    (``decode_step`` too) and holds at most one layer's leaves whole: the
+    leaves outside the layer stacks (``embed``, ``final_norm``,
+    ``layer0``, ``shared``, the frontends) are gathered whole once, and
+    each stack is handed down as per-layer views of this rank's blocks,
+    which each layer body gathers as it starts (``gather_layer``) and
+    drops when it ends. Under remat "full" and "dots" autograd keeps only
+    the blocks, and the recompute gathers again (every rank recomputes in
+    the same order, so the collectives stay matched); under remat "none"
+    the gathered leaves are saved for the backward, as any saved input.
+    Under expert parallelism the routed experts are never gathered along
+    "model": each rank keeps its own. The backward takes each gradient
+    straight to this rank's block, summed over the batch axes
+    (``collectives.LayerGather``: reduce-scatters along batch axes that
+    shard a leaf), as soon as its layer's backward is done. Every logit
+    row is whole on its rank, so the cross entropy's logsumexp sees the
+    full vocabulary. ``profile`` picks the parameter rules, the activation
+    rules and the batch axes (``base.rules_for_profile``: "tp", "fsdp" or
+    "fsdp_sp")."""
 
     def __init__(self, cfg: ArchConfig, params: PyTree, mesh, *, profile: str = "tp"):
         rules, act_rules, batch_axes = base.rules_for_profile(profile)
@@ -326,11 +371,32 @@ class ShardedTransformer(Transformer):
         self.batch_axes = tuple(a for a in batch_axes if a in base.axis_sizes(mesh))
         self.batch_groups = collectives.axis_groups(mesh, self.batch_axes)
         self.shards = collectives.LeafShards(mesh, [pl for _, pl in _paths(placements)])
+        self._outside = collectives.LayerGather({k: placements[k] for k in placements if not self._depth[k]},
+                                                mesh, self.batch_axes)
+        self._layer_gathers: dict[tuple[str, bool], collectives.LayerGather] = {}
 
     def _params(self):
-        full = _zip_map(lambda p, pl: collectives.gather_param(p, pl, self.mesh, self.batch_groups),
-                        self.param_tree(), self.placements)
-        return {k: _views(v, self._depth[k]) for k, v in full.items()}
+        tree = self.param_tree()
+        out = self._outside({k: v for k, v in tree.items() if not self._depth[k]})
+        for k in tree:
+            if self._depth[k]:
+                out[k] = _views(tree[k], self._depth[k], lambda lp, k=k: _LayerShards(lp, k, self))
+        return {k: out[k] for k in sorted(out)}
+
+    def gather_layer(self, local: dict, key: str) -> dict:
+        """One layer of stack ``key`` whole from this rank's blocks, under
+        the current mesh (a body's, or its recompute's). Under expert
+        parallelism (``moe.ep_model_size``, the test ``moe_block`` itself
+        makes) the routed experts stay this rank's along "model"."""
+        ep = "moe" in local and moe.ep_model_size(self.cfg) is not None
+        gather = self._layer_gathers.get((key, ep))
+        if gather is None:
+            depth = self._depth[key]
+            placements = base.tree_map(lambda pl: _layer_placement(pl, depth), self.placements[key])
+            keep = {("moe", k): ("model",) for k in moe.ROUTED} if ep else None
+            gather = self._layer_gathers[(key, ep)] = collectives.LayerGather(placements, self.mesh,
+                                                                              self.batch_axes, keep)
+        return gather(local)
 
     def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
         with base.use_mesh(self.mesh, self.act_rules):
@@ -401,6 +467,7 @@ def _remat(f: Callable, cfg: ArchConfig, on: bool) -> Callable:
 
 
 def _attn_mlp_body(lp, h, cfg, causal_mode):
+    lp = _whole(lp)
     a, _ = attention.attention_block(
         lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, causal_mode=causal_mode
     )
@@ -410,6 +477,7 @@ def _attn_mlp_body(lp, h, cfg, causal_mode):
 
 
 def _moe_body(lp, h, aux, cfg, causal_mode):
+    lp = _whole(lp)
     a, _ = attention.attention_block(
         lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, causal_mode=causal_mode
     )
@@ -419,11 +487,13 @@ def _moe_body(lp, h, aux, cfg, causal_mode):
 
 
 def _mamba_body(lp, h, cfg):
+    lp = _whole(lp)
     y, _ = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg)
     return base.shard_act(h + y, ("act_batch", "act_seq", None))
 
 
 def _mlstm_body(lp, h, cfg):
+    lp = _whole(lp)
     y, _ = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg)
     return base.shard_act(h + y, ("act_batch", "act_seq", None))
 
@@ -488,6 +558,7 @@ def forward(
         for glp, slp in zip(params["layers"], params["slstm_layers"]):
             for lp in glp:
                 h = body(lp, h, cfg)
+            slp = _whole(slp)
             y, _ = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg)
             h = base.shard_act(h + y, ("act_batch", "act_seq", None))
     if last_only:
@@ -538,6 +609,7 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _attn_decode_body(lp, h, kv, length, cfg):
+    lp = _whole(lp)
     a, _ = attention.attention_block(
         lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, cache=kv, cache_length=length
     )
@@ -576,6 +648,7 @@ def decode_step(
         conv, ssd = mamba["conv"], mamba["ssd"]
         for g, glp in enumerate(params["layers"]):
             for i, lp in enumerate(glp):
+                lp = _whole(lp)
                 y, st = ssm.mamba2_block(lp["mamba"], layers.rmsnorm(lp["norm"], h), cfg,
                                          state={"conv": conv[g, i], "ssd": ssd[g, i]})
                 conv[g, i] = st["conv"]
@@ -586,9 +659,11 @@ def decode_step(
         m, (c, hs) = state["mlstm"], state["slstm"]
         for g, (glp, slp) in enumerate(zip(params["layers"], params["slstm_layers"])):
             for i, lp in enumerate(glp):
+                lp = _whole(lp)
                 y, m[g, i] = xlstm.mlstm_block(lp["mlstm"], layers.rmsnorm(lp["norm"], h), cfg,
                                                state=m[g, i])
                 h = h + y
+            slp = _whole(slp)
             y, (c[g], hs[g]) = xlstm.slstm_block(slp["slstm"], layers.rmsnorm(slp["norm"], h), cfg,
                                                  state=(c[g], hs[g]))
             h = h + y

@@ -22,10 +22,11 @@ MoE aux (load-balance) loss is added with weight ``aux_weight``.
 ``make_mesh_train_step`` is the same step over a device mesh (DP × TP): the
 model a ``transformer.ShardedTransformer``, the batch this rank's rows
 (``TokenPipeline.device_batch``). Each rank computes the global loss (the
-masked token sum and count all-reduced over the batch axes) on its rows
-with every weight gathered whole, the gradients are summed over the batch
-axes back into each rank's shards, and ``apply_updates`` updates the
-shards with the norm and the compressor's scales taken over whole leaves.
+masked token sum and count all-reduced over the batch axes) on its rows,
+gathering one layer's weights at a time; each layer's gradients are
+summed over the batch axes straight into each rank's shards
+(reduce-scatters), and ``apply_updates`` updates the shards with the norm
+and the compressor's scales taken over whole leaves.
 """
 from __future__ import annotations
 

@@ -19,15 +19,21 @@ object to the path it is given:
                its cells alone take minutes on ``meta``
   opt          ``dryrun_opt.main`` on one cell
   hygiene      ``fake_world``'s refusals and clean-up
-  coll         ``gather_full``'s and ``_all_reduce``'s wire bytes and
-               counts over fake worlds of 1, 2 and 4 ranks
+  coll         ``gather_full``'s, ``_all_reduce``'s and
+               ``_reduce_scatter``'s wire bytes and counts over fake
+               worlds of 1, 2 and 4 ranks
+  split        deepseek-moe-16b at full width under "tp" on a fake (2, 2)
+               mesh (global batch 2, one microbatch, SPLIT_SEQ tokens):
+               the peak's split and one stack of routed experts' bytes
 """
 import dataclasses
 import json
+import math
 import os
 import sys
 
 COVER_SEQ = 1024
+SPLIT_SEQ = 1024
 
 ENV_BEFORE = dict(os.environ)
 from repro_torch.launch import dryrun, dryrun_opt, mesh, stepcount  # noqa: E402,F401
@@ -126,15 +132,36 @@ def coll() -> dict:
             full = collectives.gather_full(x, (Shard(0),), m)
             gathered = collectives.collective_bytes()["all_gather"]
             collectives._all_reduce(torch.empty((7, 2), dtype=torch.bfloat16, device="meta"), m.get_group("data"))
+            mine = collectives._reduce_scatter(torch.empty((g, 6), dtype=torch.bfloat16, device="meta"),
+                                               m.get_group("data"))
             out[g] = {"shape": list(full.shape), "bytes": collectives.collective_bytes(),
-                      "gathered": gathered, "counts": collectives.collective_counts()}
+                      "gathered": gathered, "counts": collectives.collective_counts(),
+                      "scattered": list(mine.shape)}
     return out
+
+
+def split() -> dict:
+    """The peak's split of one deepseek-moe-16b train step under "tp" on a
+    fake (2, 2) mesh, beside the bytes of one stack of its routed experts
+    (gate, up and down of every MoE layer, every expert, fp32)."""
+    from repro_torch.models import transformer
+
+    shape = dryrun.SHAPES["train_4k"]
+    dryrun.SHAPES["train_4k"] = dataclasses.replace(shape, seq_len=SPLIT_SEQ)
+    try:
+        rec = dryrun.run_cell("deepseek-moe-16b", "train_4k", profile="tp", n_micro=1, mesh_shape=(2, 2),
+                              global_batch=2)
+    finally:
+        dryrun.SHAPES["train_4k"] = shape
+    defs = transformer.model_defs(configs.get("deepseek-moe-16b"))["layers"]["moe"]
+    stack = sum(4 * math.prod(defs[k].shape) for k in ("gate", "up", "down"))
+    return {"split": rec["memory"]["split"], "peak": rec["memory"]["peak_bytes"], "routed_stack": stack}
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
     TMP = os.path.dirname(os.path.abspath(sys.argv[1]))
-    result = {"import_env": IMPORT_ENV, "hygiene": hygiene(), "coll": coll(), "bytes": param_bytes(),
+    result = {"import_env": IMPORT_ENV, "hygiene": hygiene(), "coll": coll(), "split": split(), "bytes": param_bytes(),
               "flops": flops(), "opt": opt(TMP), "cells": cells(TMP)}
     with open(sys.argv[1], "w") as f:
         json.dump(result, f)

@@ -131,6 +131,67 @@ def moe_aux_job(spec: dict) -> dict:
     return out
 
 
+class _GatherParam(torch.autograd.Function):
+    """The whole-leaf gather the mesh step made before it gathered layer by
+    layer, kept as the oracle: the forward gathers a leaf whole, the
+    backward all-reduces the leaf's whole gradient over the batch axes and
+    keeps this rank's shard of it."""
+
+    @staticmethod
+    def forward(ctx, local, placements, mesh, batch_groups):
+        ctx.placements, ctx.mesh, ctx.batch_groups = placements, mesh, batch_groups
+        return collectives.gather_full(local, placements, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        for grp in ctx.batch_groups:
+            collectives._all_reduce(g, grp)
+        return collectives.shard_local(g, ctx.placements, ctx.mesh).contiguous(), None, None, None
+
+
+class _WholeGather(transformer.ShardedTransformer):
+    """The mesh model with every leaf gathered whole before the forward
+    (``_GatherParam``) and the stacks taken apart into whole layers."""
+
+    def _params(self):
+        full = transformer._zip_map(lambda p, pl: _GatherParam.apply(p, pl, self.mesh, self.batch_groups),
+                                    self.param_tree(), self.placements)
+        return {k: transformer._views(v, self._depth[k]) for k, v in full.items()}
+
+
+def grads_job(spec: dict) -> dict:
+    """One gradient of the mesh loss on a (2, 2) mesh for each of the
+    spec's (arch, profile) cells, from a seeded draw at act fp32: through
+    the mesh model (each layer gathered in its body, gradients reduced to
+    the shards) and through ``_WholeGather`` on the same weights and rows.
+    Per leaf the largest |difference| over the largest |oracle| value, and
+    the mesh model's collectives."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for arch, profile in spec["cells"]:
+        cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
+        pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+        full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
+        scfg = ts.StepConfig(aux_weight=spec["aux_weight"])
+        grad_fn = ts.make_grad_fn(cfg, scfg, ts.make_mesh_loss_fn(cfg, scfg))
+        res = {}
+        for name, cls in (("layer", transformer.ShardedTransformer), ("whole", _WholeGather)):
+            model = cls(cfg, full, mesh, profile=profile)
+            batch = {k: v.to_local() for k, v in pipe.device_batch(0, mesh, model.batch_axes).items()}
+            collectives.reset_collective_counts()
+            total, _, grads = grad_fn(model, batch)
+            res[name] = (float(total), grads, collectives.collective_counts())
+        paths = ["/".join(p) for p, _ in transformer._paths(model.param_tree())]
+        rel = {p: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for p, a, b in zip(paths, res["layer"][1], res["whole"][1])}
+        out[(arch, profile)] = {"rel": rel, "total": (res["layer"][0], res["whole"][0]),
+                                "collectives": res["layer"][2],
+                                "shapes": [tuple(g.shape) for g in res["layer"][1]] == [
+                                    tuple(g.shape) for g in res["whole"][1]]}
+    return out
+
+
 def ep_job(spec: dict) -> dict:
     """The expert-parallel ``moe_block`` on (1, 4) and (2, 2) meshes, on
     this rank's batch rows: its output, aux loss, and the gradients of
@@ -234,7 +295,7 @@ def launcher_job(spec: dict) -> dict:
     return {"straight": straight, "failed": failed, "resumed": resumed}
 
 
-JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "ep": ep_job,
+JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "grads": grads_job, "ep": ep_job,
         "batch": batch_job, "shard_act": shard_act_job, "guard": guard_job, "launcher": launcher_job}
 
 

@@ -27,9 +27,20 @@ this process).
 * Hygiene: importing the dry-run modules changes no ``os.environ`` key;
   ``fake_world`` refuses inside a world (its own or a gloo one) and
   leaves none behind, after an error too; this process never forms one.
-* Collective bytes: ``gather_full`` and ``_all_reduce`` over fake worlds
-  of 1, 2 and 4 ranks move (g - 1) / g of the gathered result and
-  2 (g - 1) / g of the reduced tensor, one collective each.
+* Collective bytes: ``gather_full``, ``_all_reduce`` and
+  ``_reduce_scatter`` over fake worlds of 1, 2 and 4 ranks move (g - 1) /
+  g of the gathered result, 2 (g - 1) / g of the reduced tensor and
+  (g - 1) / g of the scattered input, one collective each.
+* Layer-by-layer gathering: one train step of deepseek-moe-16b at full
+  width under "tp" (expert parallelism over "model") on a fake (2, 2)
+  mesh, global batch 2 in one microbatch of 1,024 tokens, has
+  temporaries + gradients at its peak below the bytes of one stack of its
+  routed experts (gate, up, down of all 27 MoE layers and 64 experts in
+  fp32: 59.79 GB). Whole-leaf gathering put the whole routed stacks'
+  ``select_backward``/``slice_backward`` zeros there: 165.8 GB of
+  temporaries; layer by layer, 42.06 GB of gradients and no temporary at
+  the peak. The reduced config cannot show it: one of its layers gathered
+  whole is over half of its routed stack.
 """
 import json
 import math
@@ -157,4 +168,14 @@ def test_collective_wire_bytes_follow_ring_formulas(sides, g):
     assert res["shape"] == [3 * n, 5]
     assert res["gathered"] == (n - 1) / n * (3 * n * 5 * 4)
     assert res["bytes"]["all_reduce"] == 2 * (n - 1) / n * (7 * 2 * 2)
-    assert res["counts"] == {"all_gather": 1, "all_reduce": 1}
+    assert res["bytes"]["reduce_scatter"] == (n - 1) / n * (n * 6 * 2)
+    assert res["scattered"] == [6]
+    assert res["counts"] == {"all_gather": 1, "all_reduce": 1, "reduce_scatter": 1}
+
+
+def test_layer_gather_keeps_whole_stacks_off_the_peak(sides):
+    res = sides["port"]["split"]
+    split = res["split"]
+    print(f"split at the peak {split}, peak {res['peak']:.4e} B; one routed stack {res['routed_stack']:.4e} B")
+    assert res["routed_stack"] == 27 * 3 * 64 * 2048 * 1408 * 4
+    assert split["temporaries"] + split["gradients"] < res["routed_stack"]

@@ -179,8 +179,14 @@ BLESSED_COLLECTIVE_SITES: dict[str, frozenset[tuple[str, str]]] = {
         }
     ),
     # The mesh path's one all-reduce (reduce_sum, copy_to's and
-    # gather_param's backward, the optimizer's per-leaf reductions).
+    # LayerGather's backward, the optimizer's per-leaf reductions).
     "all_reduce": frozenset({("repro_torch/models/collectives.py", "_all_reduce")}),
+    # The mesh step's bucketed gather: one per layer and mesh dim, over
+    # the layer's leaves flattened (LayerGather's forward).
+    "all_gather_into_tensor": frozenset({("repro_torch/models/collectives.py", "_all_gather_rows")}),
+    # The mesh step's gradients to the shards: one per layer and batch
+    # mesh dim that shards its leaves (LayerGather's backward).
+    "reduce_scatter_tensor": frozenset({("repro_torch/models/collectives.py", "_reduce_scatter")}),
 }
 
 # ---------------------------------------------------------------------------
