@@ -93,15 +93,23 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    s/step of each and the collectives per step, equal to
                    the contract checker's budget for the cell
                    (tools/spjoin_lint_torch/port_budgets.json: the step
-                   gathers one layer at a time and reduce-scatters its
-                   gradients); (b)
+                   gathers one layer at a time along "data", reduce-scatters
+                   its gradients, and runs the "tp" split with one rank
+                   along "model", each block's share completed by an
+                   all-reduce); (b)
                    deepseek-moe-16b's MoE block at full width (64 experts,
                    top-6, 2 shared, expert d_ff 1408) at fp32: the
                    expert-parallel dispatch of 4 virtual ranks (16 experts
                    each) summed against the local dispatch, and in bf16
                    moe_block under the (1, 1) mesh equal to the local path
-                   bit for bit. Its seconds come out of the main path's
-                   share too;
+                   bit for bit; (c) the "tp" split of qwen1.5-0.5b at full
+                   width as 2 and as 4 virtual "model" ranks (each its
+                   vocabulary rows of the embedding, its heads and rows of
+                   wo, its FFN columns and rows, its vocabulary columns of
+                   the loss; the partials summed in rank order) against
+                   the whole layer and the whole loss, fp32 within the
+                   stated tolerance, bf16 logged. Its seconds come out of
+                   the main path's share too;
   lm_dryrun      — the dry run (launch.dryrun, launch.dryrun_opt; meta
                    tensors in a fake world, in two subprocesses run beside
                    the card step; no kernel of the repo, the launch counts
@@ -109,15 +117,17 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    (1, 1) mesh against one mesh step of it on the card in an
                    NCCL world of 1 after a warm-up step: the FLOPs equal
                    FlopCounterMode's, the collective counts the card's and
-                   the budget's (196 all-gathers, 56 all-reduces, 50
+                   the budget's (98 all-gathers, 304 all-reduces, 50
                    reduce-scatters), the predicted peak within the stated
                    tolerance of max_memory_allocated (the gap printed); (b)
                    dryrun_opt's train_4k cells of qwen1.5-0.5b and
                    deepseek-moe-16b on the single-pod (16, 16) mesh:
                    per-rank FLOPs, peak bytes and split (beside those of
                    whole-leaf gathering), fit, bottleneck and mfu_bound
-                   printed. Its seconds come out of the main path's share
-                   too;
+                   printed, and for a "tp" cell its per-rank FLOPs and
+                   useful_flops_ratio beside those of the step that
+                   computed every block whole on every "model" rank. Its
+                   seconds come out of the main path's share too;
   contracts      — the port's contract checker (tools/spjoin_lint_torch): its
                    AST layer over src/repro_torch must exit 0; then a mask
                    and a compact l1 join of 50,000 rows (default config)
@@ -2815,11 +2825,100 @@ def lm_mesh_ep(mesh) -> bool:
     return ok
 
 
+LM_MESH_VIRTUAL = (2, 4)  # check (c): virtual "model" ranks
+LM_MESH_VIRTUAL_B, LM_MESH_VIRTUAL_S = 2, 2048  # (c): tokens of the layer and the loss
+LM_MESH_VIRTUAL_REL = 1e-5  # (c): at fp32, max |split - whole| / max |whole| of the layer's output
+#   and |loss split - loss whole| / loss whole: the row splits (wo, down) add the ranks' partial
+#   sums (K / m terms each) in another order than one product of K terms, and the split
+#   log-sum-exp sums the ranks' sums of exp; a few ulps of the outputs' scale
+
+
+def lm_mesh_virtual(cfg=None, device: str = "cuda") -> bool:
+    """Check (c): the "tp" split of qwen1.5-0.5b at full width, computed as
+    m virtual "model" ranks for each m of LM_MESH_VIRTUAL (no collective:
+    each rank's share from its own column and row slices, ``Split(m, r,
+    [])`` and ``attention.head_split``, the partials summed in rank order):
+    the embedding by vocabulary row (the rows a rank does not own read
+    zeros), one attention + MLP layer (its heads and rows of wo, its
+    columns of gate/up and rows of down), and the vocabulary-parallel loss
+    (each rank's columns of the tied logits; the max over the ranks, Σ exp
+    and the label's logit summed: collectives.vocab_terms / vocab_lse), held
+    against the whole layer and the whole loss (train_step.cross_entropy)
+    on the same seeded weights and tokens; at fp32 within
+    LM_MESH_VIRTUAL_REL, at bf16 the gaps logged."""
+    from repro_torch.models import attention as lm_attention
+
+    cfg = cfg or lm_configs.get(LM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(0)
+    defs = {"layer": lm_transformer._attn_layer_defs(cfg), "embed": lm_layers.embed_defs(cfg),
+            "final_norm": lm_layers.rmsnorm_defs(cfg.d_model)}
+    params = lm_base.init_params(gen, defs, torch.float32)
+    lp, emb = params["layer"], params["embed"]
+    B, S, V = LM_MESH_VIRTUAL_B, LM_MESH_VIRTUAL_S, cfg.vocab
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=device)
+    labels = torch.where(torch.rand((B, S), generator=gen, device=device) < 0.1, -1, tokens.roll(-1, 1))
+    positions = torch.arange(S, device=device)[None, :].expand(B, S)
+    ok = True
+    for act in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, act_dtype=act)
+        dt = lm_layers.act_dt(c)
+        with torch.no_grad():
+            h = lm_layers.embed(emb, tokens, c)
+            h1 = h + lm_attention.attention_share(lp["attn"], lm_layers.rmsnorm(lp["attn_norm"], h), c, positions)
+            y = h1 + lm_layers.mlp(lp["mlp"], lm_layers.rmsnorm(lp["mlp_norm"], h1), c.mlp_kind)
+            logits = lm_layers.unembed(emb, lm_layers.rmsnorm(params["final_norm"], y), c)
+            loss = float(ts.cross_entropy(logits, labels, True)[0])
+            del logits
+            for m in LM_MESH_VIRTUAL:
+                sps = [lm_collectives.Split(m, r, []) for r in range(m)]
+                he = torch.zeros_like(h)
+                for sp in sps:  # the embedding: each rank's vocabulary rows, the others' tokens read 0
+                    he = he + lm_layers.embed_share(emb, tokens, c, sp)
+                xa = lm_layers.rmsnorm(lp["attn_norm"], he)
+                a = torch.zeros_like(he)
+                for sp in sps:
+                    hs = lm_attention.head_split(c, m, sp.rank)
+                    a = a + lm_attention.attention_share(lp["attn"], xa, c, positions, sp, hs)
+                g1 = he + a
+                xm = lm_layers.rmsnorm(lp["mlp_norm"], g1)
+                f = torch.zeros_like(g1)
+                for sp in sps:
+                    f = f + lm_layers.mlp_share(lp["mlp"], xm, c.mlp_kind, sp, c.d_ff)
+                ys = g1 + f
+                xf = lm_layers.rmsnorm(params["final_norm"], ys)
+                lab, mask = labels[:, 1:], labels[:, 1:] >= 0
+                parts = [(xf[:, :-1] @ sp.block(emb["tokens"], 0, V).to(dt).T).float() for sp in sps]
+                mx = parts[0].amax(-1)
+                for lg in parts[1:]:
+                    mx = torch.maximum(mx, lg.amax(-1))
+                tot_s, tot_ll = None, None
+                for sp, lg in zip(sps, parts):
+                    s_r, ll_r, _, _ = lm_collectives.vocab_terms(lg, lab, sp.span(V)[0], mx)
+                    tot_s = s_r if tot_s is None else tot_s + s_r
+                    tot_ll = ll_r if tot_ll is None else tot_ll + ll_r
+                del parts
+                nll = (lm_collectives.vocab_lse(tot_s, mx) - tot_ll) * mask
+                loss_s = float(nll.sum() / mask.sum().clamp(min=1))
+                emb_eq = torch.equal(he, h)
+                rel_y = float((ys.float() - y.float()).abs().max() / y.float().abs().max())
+                rel_l = abs(loss_s - loss) / abs(loss)
+                held = act == "float32"
+                ok_m = emb_eq and rel_y <= LM_MESH_VIRTUAL_REL and rel_l <= LM_MESH_VIRTUAL_REL
+                ok = ok and (ok_m or not held)
+                log(f"[lm_mesh {elapsed():.1f}s] check (c) {c.name} at {act}, {m} virtual model ranks "
+                    f"({c.n_heads // m} heads, {c.d_ff // m} FFN columns, {V // m} vocabulary rows a rank; "
+                    f"{B} x {S} tokens): embedding equal {emb_eq}; layer output max |split - whole| / max |whole| "
+                    f"{rel_y:.3e}; loss {loss_s!r} vs whole {loss!r}, rel {rel_l:.3e}"
+                    + (f" (bar {LM_MESH_VIRTUAL_REL}): {'ok' if ok_m else 'FAILED'}" if held else " (logged)"))
+    return ok
+
+
 def phase_lm_mesh(smi: str) -> float:
     """The mesh layer on the card in an NCCL world of 1 rank (file
     rendezvous in a temporary directory, destroyed in a finally): checks
-    (a) and (b) on a (1, 1) ("data", "model") mesh, then (c) the repo's
-    kernels launched 0 times. Returns the phase's seconds."""
+    (a) and (b) on a (1, 1) ("data", "model") mesh, (c) the "tp" split
+    as 2 and 4 virtual ranks, then (d) the repo's kernels launched 0
+    times. Returns the phase's seconds."""
     import torch.distributed as dist
 
     log("== lm_mesh: the mesh layer (DP x TP step, expert-parallel MoE) in an NCCL world of 1")
@@ -2836,8 +2935,10 @@ def phase_lm_mesh(smi: str) -> float:
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
+    ok.append(lm_mesh_virtual())
+    torch.cuda.empty_cache()
     counts = ops.launch_counts()
-    log(f"[lm_mesh {elapsed():.1f}s] check (c) launch counts of the repo's kernels {json.dumps(counts)} "
+    log(f"[lm_mesh {elapsed():.1f}s] check (d) launch counts of the repo's kernels {json.dumps(counts)} "
         "(the mesh path runs none of the five)")
     assert not any(counts.values()), counts
     assert all(ok), ok
@@ -2851,6 +2952,10 @@ LM_DRYRUN_TIMEOUT_S = 300  # each dry-run subprocess
 # (b): dryrun_opt's train_4k records on (16, 16) under whole-leaf gathering (the tree before the
 #   mesh step gathered layer by layer; python -m repro_torch.launch.dryrun_opt --shape train_4k
 #   --single-pod): peak bytes, and the split at the peak in bytes
+# (b): the "tp" cells' per-rank FLOPs and useful_flops_ratio when every "model" rank computed
+#   each block whole (the tree before the "tp" split; python -m repro_torch.launch.dryrun_opt
+#   --shape train_4k --single-pod on the CPU)
+LM_DRYRUN_UNSPLIT = {"deepseek-moe-16b": (789316204756992.0, 0.14448489201586706)}
 LM_DRYRUN_WHOLE_LEAF = {
     "qwen1.5-0.5b": (14254430740, {"parameters": 7743488, "optimizer": 15486980, "inputs": 32768,
                                    "activations": 4276304404, "gradients": 0, "temporaries": 9954863100}),
@@ -2986,6 +3091,12 @@ def phase_lm_dryrun(smi: str) -> float:
             f"dot traffic {rec['dot_traffic_per_device']:.4e} B, bottleneck {rec['roofline']['bottleneck']}, "
             f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, mfu_bound {rec['mfu_bound']:.4f} (H100 SXM "
             f"data-sheet constants, predictions); built {rec['build_s']}s, step {rec['step_s']}s")
+        if rec["profile"] == "tp" and rec["arch"] in LM_DRYRUN_UNSPLIT:
+            was_flops, was_ratio = LM_DRYRUN_UNSPLIT[rec["arch"]]
+            log(f"  tp split: flops_per_device {rec['flops_per_device']:.6e} (every block whole on every model rank "
+                f"{was_flops:.6e}, x {was_flops / rec['flops_per_device']:.3f}), useful_flops_ratio "
+                f"{rec['useful_flops_ratio']:.4f} (whole {was_ratio:.4f}); gathered projections "
+                f"{rec['gathered_projections']}")
         was_peak, was_split = LM_DRYRUN_WHOLE_LEAF[rec["arch"]]
         log(f"  peak {rec['memory']['peak_bytes'] / 1e9:.1f} GB (whole-leaf gathering {was_peak / 1e9:.1f} GB); split "
             f"{json.dumps({k: round(v / 2**30, 3) for k, v in rec['memory']['split'].items()})} GiB (whole-leaf "

@@ -820,6 +820,13 @@ def distributed_join(
         gen_anchor, pivots, delta=delta, metric=metric, p=p, n_dims=n_dims,
         partitioner=partitioner, seed=seed,
     )
+    # The whole boxes take the pivot filter's fp guard band instead of δ
+    # (partition.widen: Lemma 4 on computed coordinates).
+    band = verify_lib.prune_band(delta, metric, x_all, s_all if cross else None)
+    if not tighten:
+        plan = dataclasses.replace(
+            plan, whole_lo=plan.kernel_lo - band, whole_hi=plan.kernel_hi + band
+        )
     _sync(dev)
     t_control = time.perf_counter() - t0
 
@@ -834,7 +841,8 @@ def distributed_join(
     if cross and not tighten:
         _, w_cnt, _, _ = host(counts_fn(xs, valid_s))
     if tighten:
-        # Whole box := δ-expanded MBB of the cell's R members (Lemma 4).
+        # Whole box := the MBB of the cell's R members, expanded by the
+        # band (Lemma 4).
         glo = cell_lo.min(0)
         ghi = cell_hi.max(0)
         empty = glo > ghi
@@ -842,8 +850,8 @@ def distributed_join(
         ghi = np.where(empty, -partition.BIG, ghi)
         plan = dataclasses.replace(
             plan,
-            whole_lo=torch.as_tensor((glo - plan.delta).astype(np.float32), device=dev),
-            whole_hi=torch.as_tensor((ghi + plan.delta).astype(np.float32), device=dev),
+            whole_lo=torch.as_tensor((glo - band).astype(np.float32), device=dev),
+            whole_hi=torch.as_tensor((ghi + band).astype(np.float32), device=dev),
         )
         counts_fn = make_stage_counts(plan, group, backend, fused=map_fused)
         if cross:
@@ -857,11 +865,7 @@ def distributed_join(
     piv_cells = partition.assign_kernel(pplan, piv_mapped)
     piv_member = partition.whole_membership(pplan, piv_mapped)
     prune_resolved = verify_lib.resolve_prune(prune, metric, True)
-    delta_bound = (
-        verify_lib.prune_band(delta, metric, x_all, s_all if cross else None)
-        if prune_resolved == "pivot"
-        else None
-    )
+    delta_bound = band if prune_resolved == "pivot" else None
     cell_loads, predicted_survival, _, w_est = placement_lib.planner_inputs(
         piv_mapped.cpu().numpy(), piv_cells.cpu().numpy(), piv_member.cpu().numpy(),
         n, n_s, delta, prune_resolved == "pivot",

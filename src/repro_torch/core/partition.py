@@ -36,8 +36,9 @@ class PartitionPlan:
 
     kernel_lo/hi: (p, n) — half-open boxes [lo, hi) tiling ℝⁿ.
     whole_lo/hi:  (p, n) — kernel boxes expanded by δ (after optional
-                  tightening). WHOLE membership is closed: [lo − δ, hi + δ].
-    delta:        the join threshold used for the expansion.
+                  tightening; the join widens them to its fp guard band,
+                  :func:`widen`). WHOLE membership is closed: [lo − δ, hi + δ].
+    delta:        the join threshold.
     """
 
     kernel_lo: Tensor
@@ -258,17 +259,36 @@ def member_boxes(x_mapped: Tensor, cell_ids: Tensor, p: int) -> tuple[Tensor, Te
     return lo, hi
 
 
-def tighten(plan: PartitionPlan, x_mapped: Tensor, cell_ids: Tensor) -> PartitionPlan:
+def tighten(
+    plan: PartitionPlan, x_mapped: Tensor, cell_ids: Tensor, band: float | None = None
+) -> PartitionPlan:
     """Shrink each kernel box to the MBB of its assigned objects, then
-    re-expand by δ. Empty cells collapse to an inverted box (no members ⇒
-    no verifications). Preserves Lemma 4."""
+    re-expand by ``band`` (default δ; see :func:`widen`). Empty cells
+    collapse to an inverted box (no members ⇒ no verifications). Preserves
+    Lemma 4."""
+    band = plan.delta if band is None else float(band)
     lo, hi = member_boxes(x_mapped, cell_ids, plan.p)
     return PartitionPlan(
         kernel_lo=plan.kernel_lo,
         kernel_hi=plan.kernel_hi,
-        whole_lo=lo - plan.delta,
-        whole_hi=hi + plan.delta,
+        whole_lo=lo - band,
+        whole_hi=hi + band,
         delta=plan.delta,
+    )
+
+
+def widen(plan: PartitionPlan, band: float) -> PartitionPlan:
+    """The kernel boxes re-expanded by ``band`` >= δ into the whole boxes.
+
+    Lemma 4 holds for exact coordinates; computed ones carry fp32 rounding,
+    so a δ-neighbour of a row on a box face can land a few ulps outside the
+    box expanded by exactly δ, and its pair is then never verified (seen on
+    integer q-gram profiles at l1 δ = 4, where many pairs sit at exactly δ
+    and the triangle inequality is tight along an anchor). The join expands
+    by the pivot filter's guard band (``verify.prune_band``) instead: a
+    wider box only adds candidates, which the exact verify then decides."""
+    return dataclasses.replace(
+        plan, whole_lo=plan.kernel_lo - float(band), whole_hi=plan.kernel_hi + float(band)
     )
 
 

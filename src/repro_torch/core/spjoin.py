@@ -215,6 +215,11 @@ def join(
     # ---- map phase -------------------------------------------------------
     t0 = time.perf_counter()
     plan, smap = build_plan(gen_anchor, pivots, cfg)
+    # The whole boxes take the pivot filter's fp guard band instead of δ
+    # (partition.widen: Lemma 4 on computed coordinates).
+    band = verify_lib.prune_band(cfg.delta, cfg.metric, allx, s_all if cross else None)
+    if not cfg.tighten:
+        plan = partition.widen(plan, band)
     fused = cfg.map_fused and kops.supports_kernel(cfg.metric)
     assign_backend = cfg.backend if fused else None
     if fused:
@@ -228,7 +233,7 @@ def join(
         cells = partition.assign_kernel(plan, x_mapped)
         bits = None
     if cfg.tighten:
-        plan = partition.tighten(plan, x_mapped, cells)
+        plan = partition.tighten(plan, x_mapped, cells, band)
     s_mapped = None
     if cross:
         if s_all.shape[0] == 0:
@@ -260,7 +265,7 @@ def join(
         allx, cells_np, member_np, cfg.delta, cfg.metric,
         config=cfg.engine_config(), return_pairs=return_pairs,
         data_w=s_all if cross else None,
-        coords=x_mapped, coords_w=s_mapped,
+        coords=x_mapped, coords_w=s_mapped, delta_bound=band,
     )
     _sync(dev)
     t_verify = time.perf_counter() - t0

@@ -727,6 +727,7 @@ def verify_pairs(
     data_w=None,
     coords=None,
     coords_w=None,
+    delta_bound: float | None = None,
 ) -> tuple[np.ndarray, VerifyStats]:
     """Reduce phase from a kernel-cell assignment + whole-membership matrix.
 
@@ -734,7 +735,7 @@ def verify_pairs(
     whole membership of the same rows. R×S: ``data``/``cells`` describe R;
     ``data_w`` is S and ``member`` S's whole membership. Derives the
     per-cell index sets on the host and streams them through
-    :func:`verify_cell_lists`.
+    :func:`verify_cell_lists` (``delta_bound`` as there).
     """
     cells_np = _host(cells)
     member_np = _host(member)
@@ -746,7 +747,7 @@ def verify_pairs(
     return verify_cell_lists(
         data, cells_np, v_lists, w_lists, delta, metric,
         config=config, return_pairs=return_pairs, data_w=data_w,
-        coords=coords, coords_w=coords_w,
+        coords=coords, coords_w=coords_w, delta_bound=delta_bound,
     )
 
 

@@ -19,10 +19,18 @@ process group.
 
 The rank's inputs are the rows the port's mesh path gives it: dim 0 of the
 batch over the profile's batch axes (``shardings.batch_spec``: replicated
-where they do not divide it). Under layer-by-layer gathering every rank
-computes on whole leaves, one layer at a time, so a decode state holds the
-rank's batch rows with every head (``"state_layout": "rows"``), not the
-reference's ``state_shardings``.
+where they do not divide it). Under "tp" each rank computes its share of
+every block along "model" (``ShardedTransformer``: heads, FFN columns,
+experts, vocabulary rows), so a decode state holds the rank's batch rows
+and, where its attention is split by heads, its kv heads
+(``"state_layout": "heads"``, the reference's ``state_shardings`` placement
+of a GQA cache); where it is not (an MQA model's one kv head split inside
+the head, heads that do not divide "model") every kv head
+(``"state_layout": "rows"``), as under "fsdp". ``"gathered_projections"``
+names the attention leaves whose projections this rank computes on its
+columns and gathers whole along "model" (their attention then runs on
+whole heads, and the heads its rows of ``wo`` straddle are computed on two
+ranks).
 
 The record keeps the reference's keys where they mean the same thing, per
 rank and per step: ``memory.{argument_bytes, output_bytes, temp_bytes,
@@ -153,16 +161,19 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, profile: str = "tp",
             return step(model, batch)
     else:  # decode: one token against a state holding seq_len - 1 tokens
         step = ts.make_serve_step(cfg)
-        token, state, length = local["token"], local["state"], shape.seq_len - 1
+        token, state, length = local["token"], model.init_state(rows, shape.seq_len), shape.seq_len - 1
         held["inputs"] = [token, *base.tree_leaves(state)]
-        meta = {"entry": "serve_step", "state_layout": "rows"}
+        hs = model.kv_split if cfg.family != "ssm" else None
+        meta = {"entry": "serve_step", "state_layout": "heads" if hs is not None and hs.kv == "heads" else "rows"}
 
         def run():
             return step(model, token, state, length)
 
     sizes = base.axis_sizes(mesh)
+    hs = model.kv_split if cfg.family != "ssm" else None
     meta.update(mesh_shape=str(sizes), chips=math.prod(sizes.values()), profile=profile,
-                rows_per_rank=rows)
+                rows_per_rank=rows,
+                gathered_projections=[f"attn/{k}" for k in hs.gathered] if hs is not None else [])
     return run, held, meta, cfg, shape
 
 

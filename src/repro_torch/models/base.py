@@ -288,16 +288,20 @@ def make_shardings(defs: PyTree, mesh, rules=None) -> PyTree:
 # Activation sharding constraints (the reference's base.py:178-226)
 # ---------------------------------------------------------------------------
 
-_CURRENT_MESH: list[tuple[Any, dict]] = [(None, ACT_RULES)]
+_CURRENT_MESH: list[tuple[Any, dict, bool]] = [(None, ACT_RULES, False)]
 
 
 class use_mesh:
     """Context manager: makes ``shard_act`` (and the MoE's expert-parallel
     branch) bind to this mesh and, optionally, a profile's activation
-    rules."""
+    rules. ``split``: the weights handed to the blocks are this rank's
+    blocks along "model" (``transformer.ShardedTransformer`` under "tp"),
+    so each block computes its share and sums it over "model"
+    (``collectives.model_split``); without it every rank computes the
+    blocks whole."""
 
-    def __init__(self, mesh, act_rules: dict | None = None):
-        self.entry = (mesh, act_rules or ACT_RULES)
+    def __init__(self, mesh, act_rules: dict | None = None, split: bool = False):
+        self.entry = (mesh, act_rules or ACT_RULES, split)
 
     def __enter__(self):
         _CURRENT_MESH.append(self.entry)
@@ -311,8 +315,8 @@ def current_mesh():
     return _CURRENT_MESH[-1][0]
 
 
-def current_mesh_entry() -> tuple[Any, dict]:
-    """(mesh, activation rules) in force: ``use_mesh(*entry)`` re-enters
+def current_mesh_entry() -> tuple[Any, dict, bool]:
+    """(mesh, activation rules, split) in force: ``use_mesh(*entry)`` re-enters
     them (a checkpointed body's recompute, which runs in the backward
     pass after the forward's ``use_mesh`` has exited)."""
     return _CURRENT_MESH[-1]
@@ -320,6 +324,11 @@ def current_mesh_entry() -> tuple[Any, dict]:
 
 def current_act_rules() -> dict:
     return _CURRENT_MESH[-1][1]
+
+
+def current_split() -> bool:
+    """Whether the blocks compute this rank's share along "model" (``use_mesh``)."""
+    return _CURRENT_MESH[-1][2]
 
 
 def act_spec(shape, axes: tuple[str | None, ...], mesh=None, act_rules: dict | None = None) -> tuple:

@@ -15,20 +15,34 @@ process group of one mesh axis (``DeviceMesh.get_group(axis)``):
                  block with no sum, and along a batch axis on which it is
                  replicated an all-reduce of the block (one for those
                  leaves). No whole leaf's gradient is ever all-reduced.
+                 Along a dim the caller keeps (``keep_local``: under
+                 "tp" every dim the rules shard over "model") a leaf
+                 stays this rank's block, neither gathered nor summed.
   reduce_sum     all-reduce SUM forward, identity backward
   copy_to        identity forward, all-reduce SUM backward
   scale_grad     identity forward, the gradient scaled backward
+  gather_last    all-gather along the last dim forward; backward a
+                 reduce-scatter (the ranks' uses are partial) or this
+                 rank's block (they are the same)
+  all_max        all-reduce MAX, a constant
+  vocab_nll      the vocabulary-parallel cross entropy (one all-reduce
+                 MAX and one SUM forward, none backward)
+
+The tensor-parallel split (``model_split``, ``Split``): under "tp" the
+mesh step hands each block this rank's blocks along "model", and the block
+computes its share between a ``copy_to`` of its input and a
+``reduce_sum`` of its output (column then row: Megatron's split).
 
 Gradient convention: every rank computes the GLOBAL objective's value, and
-its backward gives the contribution of the rows it holds. Gradients are
-then summed over the batch axes (``LayerGather``'s backward); ranks that
-differ only along a replicated axis ("model" under the tensor-parallel
-rules) hold the same rows and compute the same gradient, so nothing is
-summed over it. ``reduce_sum`` is the forward of a quantity summed over
-ranks (each rank then holds the global value, and the gradient reaching
-it is the one its own term takes); ``copy_to`` marks where partial
-gradients of a replicated input must be summed (the expert-parallel MoE,
-where each rank reaches only its own experts).
+its backward gives the contribution of the rows and blocks it holds.
+Gradients are then summed over the batch axes (``LayerGather``'s
+backward); ranks that differ only along "model" hold the same rows, and
+each block's share of the objective reaches its own block, so nothing is
+summed over "model" but where a split block's input (``copy_to``) or a
+leaf used whole inside it (the router, a replicated projection) takes
+partial gradients from every rank. ``reduce_sum`` is the forward of a
+quantity summed over ranks (each rank then holds the global value, and
+the gradient reaching it is the one its own term takes).
 
 Every collective is counted (``collective_counts``), as the distributed
 executor counts its own, with its wire bytes per rank beside the count
@@ -164,6 +178,145 @@ def copy_to(x: Tensor, groups: list) -> Tensor:
 def scale_grad(x: Tensor, s: float) -> Tensor:
     """``x`` itself; its gradient times ``s``."""
     return _ScaleGrad.apply(x, s)
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, partial):
+        ctx.group, ctx.partial = group, partial
+        g = dist.get_world_size(group)
+        rows = _all_gather_rows(x.contiguous(), group)  # (g, numel): rank r's block in row r
+        return rows.view(g, *x.shape).movedim(0, -2).reshape(*x.shape[:-1], g * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = dist.get_world_size(ctx.group)
+        blocks = grad.reshape(*grad.shape[:-1], g, grad.shape[-1] // g).movedim(-2, 0)
+        if not ctx.partial:
+            return blocks[dist.get_rank(ctx.group)].contiguous(), None, None
+        mine = _reduce_scatter(blocks.reshape(g, -1).contiguous(), ctx.group)
+        return mine.view(blocks.shape[1:]), None, None
+
+
+def gather_last(x: Tensor, group, partial: bool = True) -> Tensor:
+    """Every rank's ``x`` of ``group`` side by side along the last dim, in
+    rank order (one all-gather). ``partial``: each rank's use of the
+    result reaches only part of the objective, so the gradient of this
+    rank's block is the sum of the ranks' gradients of it (one
+    reduce-scatter); otherwise every rank computes the same objective from
+    the result, and the block takes its own rank's gradient."""
+    return _GatherLast.apply(x, group, partial)
+
+
+def all_max(x: Tensor, groups: list) -> Tensor:
+    """The elementwise maximum of ``x`` over ``groups``, as a constant (no
+    gradient)."""
+    y = x.detach().contiguous().clone()
+    for g in groups:
+        _all_reduce(y, g, op=dist.ReduceOp.MAX)
+    return y
+
+
+class Split:
+    """The tensor-parallel split in force (``model_split``): this rank is
+    ``rank`` of ``size`` along "model", and ``groups`` is that axis' group
+    (a list, as ``reduce_sum`` and ``copy_to`` take it; empty for a rank
+    computed alone, whose share is summed by its caller). A dim the rules
+    shard over "model" is one that ``size`` divides (``base.spec_for``'s
+    divisibility rule); rank r holds its r-th chunk."""
+
+    def __init__(self, size: int, rank: int, groups: list):
+        self.size, self.rank, self.groups = size, rank, list(groups)
+        self.group = self.groups[0] if self.groups else None
+
+    @classmethod
+    def of(cls, mesh) -> "Split":
+        """This rank's split along the "model" axis of ``mesh``."""
+        return cls(base.axis_sizes(mesh)["model"], coordinate(mesh, "model"), axis_groups(mesh, ("model",)))
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of ``n`` is sharded over "model"."""
+        return n % self.size == 0
+
+    def span(self, n: int) -> tuple[int, int]:
+        """This rank's [lo, hi) of a dim of ``n`` that ``splits``."""
+        c = n // self.size
+        return self.rank * c, (self.rank + 1) * c
+
+    def block(self, w: Tensor, dim: int, full: int) -> Tensor:
+        """This rank's block of ``w`` along ``dim`` (``full`` long whole):
+        ``w`` itself when the dim is not split or ``w`` is held as the
+        block already, else its chunk (a view)."""
+        if not self.splits(full) or w.shape[dim] != full:
+            return w
+        lo, hi = self.span(full)
+        return w.narrow(dim, lo, hi - lo)
+
+
+def model_split() -> Split | None:
+    """The split in force: under ``base.use_mesh(..., split=True)`` on a
+    mesh with a "model" axis, each block computes this rank's share (its
+    heads, FFN columns, experts' columns, vocabulary rows) and sums it over
+    "model"; else None, and the blocks compute whole."""
+    mesh = base.current_mesh()
+    if mesh is None or not base.current_split() or "model" not in base.axis_sizes(mesh):
+        return None
+    return Split.of(mesh)
+
+
+def vocab_terms(logits: Tensor, labels: Tensor, lo: int, m: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One rank's terms of the vocabulary-parallel CE from its columns
+    [lo, lo + n) of the logits and the max over all columns ``m``:
+    (Σ exp(logits - m), the label's logit or 0 where the label is not in
+    its columns, the label's local column clamped into them, whether it is
+    in them)."""
+    n = logits.shape[-1]
+    s = (logits - m[..., None]).exp().sum(-1)
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    local = local.clamp(0, n - 1)
+    ll = logits.gather(-1, local[..., None])[..., 0].masked_fill(~inside, 0)
+    return s, ll, local, inside
+
+
+def vocab_lse(s: Tensor, m: Tensor) -> Tensor:
+    """The log-sum-exp from the ranks' Σ exp summed (``s``) and the max
+    ``m``, in ``torch.logsumexp``'s own order: log(s) + m, an infinite max
+    added as 0."""
+    return s.log() + m.masked_fill(m.abs() == math.inf, 0)
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, lo, groups):
+        m = all_max(logits.amax(-1), groups)
+        s, ll, local, inside = vocab_terms(logits, labels, lo, m)
+        both = torch.stack([s, ll])
+        for g in groups:
+            _all_reduce(both, g)
+        lse = vocab_lse(both[0], m)
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, inside = ctx.saved_tensors
+        out = grad[..., None] * (logits - lse[..., None]).exp()  # logsumexp's backward
+        out.scatter_add_(-1, local[..., None], -(grad * inside)[..., None])  # the label's gather
+        return out, None, None, None
+
+
+def vocab_nll(logits: Tensor, labels: Tensor, split: Split) -> Tensor:
+    """Per-position ``logsumexp(logits) - logits[label]`` over the whole
+    vocabulary from this rank's columns ``logits`` (..., V / m) of it
+    (``split.span``), without forming whole logits: the max over the ranks
+    all-reduced with MAX (a constant), Σ exp and the label's logit (0 on
+    the ranks that do not own the label) summed in one all-reduce. Each
+    rank holds the whole value; its backward gives the gradient of its own
+    columns (softmax less the label's one-hot), with no collective. On one
+    rank it is ``torch.logsumexp`` and ``gather``, forward and backward,
+    bit for bit."""
+    return _VocabNLL.apply(logits, labels, split.span(logits.shape[-1] * split.size)[0], split.groups)
 
 
 def batch_mean(x: Tensor, mesh, batch_axes) -> Tensor:

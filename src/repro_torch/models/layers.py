@@ -6,12 +6,20 @@ runs in ``cfg.act_dtype`` (bf16 by default) with fp32 norms/softmax — the
 long-reduction rule. Weights are cast to the activation dtype at each use,
 as the reference does; the cast is a no-op for weights already held in it
 (``transformer.Transformer`` casts them once).
+
+Under a split (``collectives.model_split``: the mesh step under "tp") the
+MLP and the vocabulary are split over "model" where the rules shard them:
+the MLP by column (``gate``/``up``) and row (``down``) between a
+``copy_to`` and a ``reduce_sum``, the embedding by vocabulary row (a token
+outside the rank's rows reads zeros, then ``reduce_sum``), and the
+unembedding gives this rank's vocabulary columns of the logits.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import collectives
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
@@ -88,13 +96,42 @@ def mlp_defs(cfg, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(params: dict, x: Tensor, kind: str = "swiglu") -> Tensor:
+def mlp(params: dict, x: Tensor, kind: str = "swiglu", d_ff: int | None = None) -> Tensor:
+    """The (Swi)GLU MLP. ``d_ff``: its hidden width, given where the MLP
+    may run split (the mesh step's blocks): under a split that shards it,
+    each rank computes its columns and rows and the partial outputs are
+    summed over "model" (``mlp_share``)."""
+    sp = collectives.model_split() if d_ff else None
+    if sp is None or not sp.splits(d_ff):
+        return mlp_share(params, x, kind)
+    y = mlp_share(params, collectives.copy_to(x, sp.groups), kind, sp, d_ff)
+    return row_bias(params["down"], collectives.reduce_sum(y, sp.groups))
+
+
+def row_bias(params: dict, y: Tensor) -> Tensor:
+    """``y`` plus a row-split linear's bias, where it has one: added once,
+    after the sum over "model"."""
+    return y + params["b"].to(y.dtype) if "b" in params else y
+
+
+def mlp_share(params: dict, x: Tensor, kind: str = "swiglu", sp=None, d_ff: int = 0) -> Tensor:
+    """This rank's share of the MLP (``sp``: a ``collectives.Split`` that
+    shards ``d_ff``): ``gate``/``up`` (and their biases) on its columns,
+    ``down`` on its rows without its bias (``row_bias``, after the sum):
+    the partial output before the sum over "model". Without ``sp`` the
+    whole MLP."""
+    def cols(p: dict) -> dict:
+        return p if sp is None else {k: sp.block(v, v.dim() - 1, d_ff) for k, v in p.items()}
+
+    def rows(p: dict) -> dict:
+        return p if sp is None else {"w": sp.block(p["w"], 0, d_ff)}
+
     if kind == "swiglu":
-        g = linear(params["gate"], x)
-        u = linear(params["up"], x)
-        return linear(params["down"], F.silu(g) * u)
+        g = linear(cols(params["gate"]), x)
+        u = linear(cols(params["up"]), x)
+        return linear(rows(params["down"]), F.silu(g) * u)
     # jax.nn.gelu defaults to the tanh approximation
-    return linear(params["down"], F.gelu(linear(params["up"], x), approximate="tanh"))
+    return linear(rows(params["down"]), F.gelu(linear(cols(params["up"]), x), approximate="tanh"))
 
 
 # ---------------------------------------------------------------------------
@@ -109,15 +146,41 @@ def embed_defs(cfg) -> dict:
     return out
 
 
+def vocab_split(cfg):
+    """The split in force when it shards the vocabulary, else None."""
+    sp = collectives.model_split()
+    return sp if sp is not None and sp.splits(cfg.vocab) else None
+
+
 def embed(params: dict, tokens: Tensor, cfg) -> Tensor:
-    return params["tokens"].to(act_dt(cfg))[tokens]
+    sp = vocab_split(cfg)
+    if sp is None:
+        return params["tokens"].to(act_dt(cfg))[tokens]
+    return collectives.reduce_sum(embed_share(params, tokens, cfg, sp), sp.groups)
+
+
+def embed_share(params: dict, tokens: Tensor, cfg, sp) -> Tensor:
+    """This rank's share of the embedding (``sp`` splits the vocabulary):
+    its rows of ``tokens`` looked up, zeros for the tokens it does not own."""
+    lo, hi = sp.span(cfg.vocab)
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = sp.block(params["tokens"], 0, cfg.vocab).to(act_dt(cfg))[torch.where(inside, local, 0)]
+    return rows.masked_fill(~inside[..., None], 0)
 
 
 def unembed(params: dict, x: Tensor, cfg) -> Tensor:
+    """Logits (..., vocab); under a split that shards the vocabulary this
+    rank's columns of them (..., vocab / m), ``vocab_split``'s span."""
+    sp = vocab_split(cfg)
     if cfg.tie_embeddings:
-        w = params["tokens"].to(x.dtype).T
+        w = params["tokens"] if sp is None else sp.block(params["tokens"], 0, cfg.vocab)
+        w = w.to(x.dtype).T
     else:
-        w = params["unembed"].to(x.dtype)
+        w = params["unembed"] if sp is None else sp.block(params["unembed"], 1, cfg.vocab)
+        w = w.to(x.dtype)
+    if sp is not None:
+        x = collectives.copy_to(x, sp.groups)
     logits = x @ w
     if cfg.logit_softcap:
         c = cfg.logit_softcap

@@ -21,6 +21,14 @@ calls the mesh's process groups itself (``collectives``). Under any other
 mesh the local path runs on the rank's batch rows, with the load-balance
 loss's means taken over the global batch, as GSPMD gives the reference.
 Without a mesh the path is the single-card one, op for op.
+
+Under a split (``collectives.model_split``: the mesh step under "tp",
+which hands down each rank's blocks along "model") the shared experts take
+the MLP's column and row split, their partial output added to the routed
+partials before the one all-reduce; where "model" does not divide
+``n_experts`` the rules put it on the experts' FFN dim instead, and each
+rank computes every expert on its columns and rows (``_moe_split``), the
+router replicated.
 """
 from __future__ import annotations
 
@@ -165,9 +173,7 @@ def ep_model_size(cfg) -> int | None:
     """The "model" axis' size when ``moe_block`` takes the expert-parallel
     branch: a current mesh with a "model" axis that divides ``n_experts``
     and activation rules that replicate activations over it (under the
-    FSDP profile "model" carries batch, and the local path runs). The
-    mesh step asks it too, to keep each rank's routed experts ungathered
-    (``transformer.ShardedTransformer.gather_layer``)."""
+    FSDP profile "model" carries batch, and the local path runs)."""
     mesh = base.current_mesh()
     if mesh is None or base.current_act_rules().get("act_model") is None:
         return None
@@ -206,13 +212,20 @@ def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Ten
     parameter's gradient over the batch axes)."""
     mesh = base.current_mesh()
     n_model = ep_model_size(cfg)
+    sp = collectives.model_split()
     if n_model is None:
         if mesh is None:
             return _moe_groups(params, x, cfg, group_size, _dispatch_group)
         axes = base.current_act_rules()["act_batch"]
 
+        def batch_mean(t):
+            return collectives.batch_mean(t, mesh, axes)
+
+        if sp is not None and sp.splits(cfg.d_ff_expert):
+            return _moe_split(params, x, cfg, group_size, sp, batch_mean)
+
         def local(pp, xg, cfg_):
-            return _dispatch_group(pp, xg, cfg_, lambda t: collectives.batch_mean(t, mesh, axes))
+            return _dispatch_group(pp, xg, cfg_, batch_mean)
 
         return _moe_groups(params, x, cfg, group_size, local)
     n_local = cfg.n_experts // n_model
@@ -225,10 +238,47 @@ def moe_block(params: dict, x: Tensor, cfg, group_size: int = 2048) -> tuple[Ten
     def dispatch(pp, xg, cfg_):
         return _dispatch_group_ep(pp, xg, cfg_, e_off, n_local)
 
-    y, aux = _moe_groups(routed, collectives.copy_to(x, model), cfg, group_size, dispatch)
-    y = collectives.reduce_sum(y, model)
+    xc = collectives.copy_to(x, model)
+    y, aux = _moe_groups(routed, xc, cfg, group_size, dispatch)
+    y = _shared_sum(params, x, xc, y, cfg, sp, model)
     # every "model" rank computes the same aux: its gradient is shared out
     aux = collectives.batch_mean(collectives.scale_grad(aux, 1.0 / n_model), mesh, ("pod", "data"))
+    return y, aux
+
+
+def _shared_sum(params, x: Tensor, xc: Tensor, y: Tensor, cfg, sp, model: list) -> Tensor:
+    """The routed partial ``y`` summed over "model" with the shared
+    experts: under a split that shards them their share is added to ``y``
+    first (on ``xc``, ``x`` after ``copy_to``), so one all-reduce sums
+    both; else they run whole on ``x`` after the sum."""
+    d_sh = cfg.n_shared_experts * cfg.d_ff_expert
+    if cfg.n_shared_experts and sp is not None and sp.splits(d_sh):
+        y = collectives.reduce_sum(y + layers.mlp_share(params["shared"], xc, "swiglu", sp, d_sh), model)
+        return layers.row_bias(params["shared"]["down"], y)
+    y = collectives.reduce_sum(y, model)
     if cfg.n_shared_experts:
         y = y + layers.mlp(params["shared"], x, "swiglu")
-    return y, aux
+    return y
+
+
+def _moe_split(params, x: Tensor, cfg, group_size: int, sp, batch_mean) -> tuple[Tensor, Tensor]:
+    """``moe_block`` under a split where "model" does not divide
+    ``n_experts``: the rules shard each routed expert's FFN dim over
+    "model", so every rank routes every token of its rows (the router
+    replicated: its gradient summed over "model"), runs every expert on its
+    columns of ``gate``/``up`` and rows of ``down``, and the partial
+    outputs are summed over "model" with the shared experts' (one
+    all-reduce). The aux loss is the local path's (means over the global
+    batch), its gradient shared out over the "model" ranks that each
+    compute it."""
+    f = cfg.d_ff_expert
+    pp = {"router": collectives.copy_to(params["router"], sp.groups),
+          "gate": sp.block(params["gate"], 2, f), "up": sp.block(params["up"], 2, f),
+          "down": sp.block(params["down"], 1, f)}
+
+    def dispatch(pp_, xg, cfg_):
+        return _dispatch_group_ep(pp_, xg, cfg_, 0, cfg.n_experts, batch_mean)
+
+    xc = collectives.copy_to(x, sp.groups)
+    y, aux = _moe_groups(pp, xc, cfg, group_size, dispatch)
+    return _shared_sum(params, x, xc, y, cfg, sp, sp.groups), collectives.scale_grad(aux, 1.0 / sp.size)

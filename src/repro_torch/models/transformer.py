@@ -330,6 +330,12 @@ def _zip_map(fn, a: PyTree, b: PyTree) -> PyTree:
     return fn(a, b)
 
 
+# The mixers that keep gathering whole along "model" under "tp": their
+# one FFN column dim concatenates segments (Mamba2's z, x, B, C, dt), so a
+# column block is not one segment (ROADMAP §3).
+WHOLE_MIXERS = frozenset({"mamba", "mlstm", "slstm"})
+
+
 class ShardedTransformer(Transformer):
     """The trainable holding over a device mesh: each leaf is this rank's
     shard, placed by ``base.make_shardings(model_defs(cfg), mesh, rules)``.
@@ -338,25 +344,38 @@ class ShardedTransformer(Transformer):
     rank; each rank keeps a copy of its block of every leaf, so the
     parameters, their gradients and every optimizer state built from
     ``param_tree()`` hold only this rank's shards. The forward computes on
-    the rank's batch rows under ``base.use_mesh(mesh, act_rules)``
-    (``decode_step`` too) and holds at most one layer's leaves whole: the
-    leaves outside the layer stacks (``embed``, ``final_norm``,
-    ``layer0``, ``shared``, the frontends) are gathered whole once, and
-    each stack is handed down as per-layer views of this rank's blocks,
-    which each layer body gathers as it starts (``gather_layer``) and
-    drops when it ends. Under remat "full" and "dots" autograd keeps only
-    the blocks, and the recompute gathers again (every rank recomputes in
-    the same order, so the collectives stay matched); under remat "none"
-    the gathered leaves are saved for the backward, as any saved input.
-    Under expert parallelism the routed experts are never gathered along
-    "model": each rank keeps its own. The backward takes each gradient
-    straight to this rank's block, summed over the batch axes
-    (``collectives.LayerGather``: reduce-scatters along batch axes that
-    shard a leaf), as soon as its layer's backward is done. Every logit
-    row is whole on its rank, so the cross entropy's logsumexp sees the
-    full vocabulary. ``profile`` picks the parameter rules, the activation
-    rules and the batch axes (``base.rules_for_profile``: "tp", "fsdp" or
-    "fsdp_sp")."""
+    the rank's batch rows under ``base.use_mesh(mesh, act_rules, split)``
+    (``decode_step`` too) and holds at most one layer's leaves gathered:
+    the leaves outside the layer stacks (``embed``, ``final_norm``,
+    ``layer0``, ``shared``, the frontends) are gathered once, and each
+    stack is handed down as per-layer views of this rank's blocks, which
+    each layer body gathers as it starts (``gather_layer``) and drops when
+    it ends. Under remat "full" and "dots" autograd keeps only the blocks,
+    and the recompute gathers again (every rank recomputes in the same
+    order, so the collectives stay matched); under remat "none" the
+    gathered leaves are saved for the backward, as any saved input.
+
+    The gathers run along the batch axes. Under "tp" (``split``) every dim
+    the rules shard over "model" stays this rank's block, and the blocks
+    compute their share (``collectives.model_split``): attention by heads,
+    the MLPs and shared experts by column and row, routed experts by
+    expert (or by column where "model" does not divide them), embedding,
+    logits and cross entropy by vocabulary row; one all-reduce over
+    "model" completes each. The Mamba2 and xLSTM mixers (``WHOLE_MIXERS``)
+    are gathered whole along "model" and computed whole. Under "fsdp" and
+    "fsdp_sp", where "model" carries batch, every leaf is gathered whole.
+    The backward takes each gradient straight to this rank's block, summed
+    over the batch axes (``collectives.LayerGather``: reduce-scatters along
+    batch axes that shard a leaf), as soon as its layer's backward is done.
+
+    Under "tp" the full-sequence forward returns this rank's vocabulary
+    columns of the logits (``logits_split``), which the mesh loss takes as
+    they are (``collectives.vocab_nll``); the serving entry points
+    (``last_only``, ``decode_step``) gather them whole, and the KV caches
+    of ``init_state`` hold the rank's kv heads where the attention is split
+    by heads (``kv_split``). ``profile`` picks the parameter rules, the
+    activation rules and the batch axes (``base.rules_for_profile``: "tp",
+    "fsdp" or "fsdp_sp")."""
 
     def __init__(self, cfg: ArchConfig, params: PyTree, mesh, *, profile: str = "tp"):
         rules, act_rules, batch_axes = base.rules_for_profile(profile)
@@ -368,12 +387,40 @@ class ShardedTransformer(Transformer):
         self.mesh = mesh
         self.placements = placements
         self.act_rules = act_rules
+        self.split = act_rules.get("act_model") is not None and "model" in base.axis_sizes(mesh)
         self.batch_axes = tuple(a for a in batch_axes if a in base.axis_sizes(mesh))
         self.batch_groups = collectives.axis_groups(mesh, self.batch_axes)
         self.shards = collectives.LeafShards(mesh, [pl for _, pl in _paths(placements)])
-        self._outside = collectives.LayerGather({k: placements[k] for k in placements if not self._depth[k]},
-                                                mesh, self.batch_axes)
-        self._layer_gathers: dict[tuple[str, bool], collectives.LayerGather] = {}
+        outside = {k: placements[k] for k in placements if not self._depth[k]}
+        self._outside = collectives.LayerGather(outside, mesh, self.batch_axes, self._keep(outside))
+        self._layer_gathers: dict[str, collectives.LayerGather] = {}
+
+    def _keep(self, placements: dict) -> dict:
+        """{leaf path: ("model",)} for the leaves kept as this rank's block
+        along "model": under the split, every leaf outside the mixers."""
+        if not self.split:
+            return {}
+        paths = [p for p, _ in _paths(placements)]
+        return {p: ("model",) for p in paths if not WHOLE_MIXERS & set(p)}
+
+    @property
+    def model_axis(self):
+        """The split along "model" (a ``collectives.Split``), or None."""
+        return collectives.Split.of(self.mesh) if self.split else None
+
+    @property
+    def logits_split(self):
+        """The ``collectives.Split`` whose vocabulary columns the full-sequence
+        logits are, or None when they are whole."""
+        sp = self.model_axis
+        return sp if sp is not None and sp.splits(self.cfg.vocab) else None
+
+    @property
+    def kv_split(self):
+        """This rank's ``attention.HeadSplit``, or None when every rank
+        computes the attention whole."""
+        sp = self.model_axis
+        return None if sp is None else attention.head_split(self.cfg, sp.size, sp.rank)
 
     def _params(self):
         tree = self.param_tree()
@@ -384,27 +431,31 @@ class ShardedTransformer(Transformer):
         return {k: out[k] for k in sorted(out)}
 
     def gather_layer(self, local: dict, key: str) -> dict:
-        """One layer of stack ``key`` whole from this rank's blocks, under
-        the current mesh (a body's, or its recompute's). Under expert
-        parallelism (``moe.ep_model_size``, the test ``moe_block`` itself
-        makes) the routed experts stay this rank's along "model"."""
-        ep = "moe" in local and moe.ep_model_size(self.cfg) is not None
-        gather = self._layer_gathers.get((key, ep))
+        """One layer of stack ``key`` gathered from this rank's blocks: whole
+        along the batch axes, and under the split still this rank's block
+        along "model" outside the mixers (``_keep``)."""
+        gather = self._layer_gathers.get(key)
         if gather is None:
             depth = self._depth[key]
             placements = base.tree_map(lambda pl: _layer_placement(pl, depth), self.placements[key])
-            keep = {("moe", k): ("model",) for k in moe.ROUTED} if ep else None
-            gather = self._layer_gathers[(key, ep)] = collectives.LayerGather(placements, self.mesh,
-                                                                              self.batch_axes, keep)
+            gather = self._layer_gathers[key] = collectives.LayerGather(placements, self.mesh, self.batch_axes,
+                                                                         self._keep(placements))
         return gather(local)
 
     def forward(self, batch: dict, *, causal_mode: str = "blocklist", last_only: bool = False):
-        with base.use_mesh(self.mesh, self.act_rules):
+        with base.use_mesh(self.mesh, self.act_rules, self.split):
             return super().forward(batch, causal_mode=causal_mode, last_only=last_only)
 
     def decode_step(self, token: Tensor, state: PyTree, length: int | Tensor):
-        with base.use_mesh(self.mesh, self.act_rules):
+        with base.use_mesh(self.mesh, self.act_rules, self.split):
             return super().decode_step(token, state, length)
+
+    def init_state(self, batch: int, max_len: int) -> PyTree:
+        """This rank's decode state for ``batch`` rows: its kv heads in the
+        KV caches where the attention is split by heads (``kv_split``)."""
+        hs = self.kv_split
+        return init_state(self.cfg, batch, max_len, device=self.tree["final_norm"]["scale"].device,
+                          kv_heads=None if hs is None else hs.cache_heads(self.cfg))
 
     def shard_tree(self, tree: PyTree) -> PyTree:
         """This rank's shards of a full tree in the parameters' layout."""
@@ -466,13 +517,18 @@ def _remat(f: Callable, cfg: ArchConfig, on: bool) -> Callable:
     return run
 
 
+def _d_ff(cfg: ArchConfig) -> int:
+    """The hidden width of a dense MLP of the model (``layer0``'s, ``model_defs``)."""
+    return cfg.d_ff or 4 * cfg.d_model
+
+
 def _attn_mlp_body(lp, h, cfg, causal_mode):
     lp = _whole(lp)
     a, _ = attention.attention_block(
         lp["attn"], layers.rmsnorm(lp["attn_norm"], h), cfg, causal_mode=causal_mode
     )
     h = h + a
-    h = h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+    h = h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind, _d_ff(cfg))
     return base.shard_act(h, ("act_batch", "act_seq", None))
 
 
@@ -564,7 +620,16 @@ def forward(
     if last_only:
         h = h[:, -1:]
     h = layers.rmsnorm(params["final_norm"], h)
-    return layers.unembed(params["embed"], h, cfg), aux
+    logits = layers.unembed(params["embed"], h, cfg)
+    return (_whole_logits(logits, cfg) if last_only else logits), aux
+
+
+def _whole_logits(logits: Tensor, cfg: ArchConfig) -> Tensor:
+    """Serving's logits whole: under a split of the vocabulary the ranks'
+    columns gathered along "model" (each rank's downstream is the same, so
+    the gradient of its columns is its own)."""
+    sp = layers.vocab_split(cfg)
+    return logits if sp is None else collectives.gather_last(logits, sp.group, partial=False)
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +642,7 @@ def _stacked(x: Tensor, *lead: int) -> Tensor:
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int,
-               device: torch.device | str = "cuda") -> PyTree:
+               device: torch.device | str = "cuda", kv_heads: int | None = None) -> PyTree:
     """Decode state, the reference's pytree with its shapes and dtypes:
       dense / vlm  {"kv": {"k", "v"}} (n_layers, batch, max_len, n_kv_heads,
                    head_dim) bf16
@@ -585,19 +650,21 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int,
       hybrid       {"mamba": {"conv" (groups, per, batch, W-1, C) bf16,
                    "ssd" (groups, per, batch, H, N, P) fp32}, "kv" (groups, ...)}
       ssm          {"mlstm": (groups, per_m, batch, H, dh, dh+1) fp32,
-                   "slstm": (c, h), each (groups, batch, H, dh) fp32}"""
+                   "slstm": (c, h), each (groups, batch, H, dh) fp32}
+    ``kv_heads``: the kv heads each KV cache holds (a rank's share under a
+    split, ``ShardedTransformer.init_state``; default every one)."""
     _check_family(cfg)
     if cfg.family in ("dense", "vlm", "moe"):
-        cache = attention.init_kv_cache(cfg, batch, max_len, device=device)
+        cache = attention.init_kv_cache(cfg, batch, max_len, device=device, kv_heads=kv_heads)
         n = _n_moe(cfg) if cfg.family == "moe" else cfg.n_layers
         out = {"kv": {k: _stacked(x, n) for k, x in cache.items()}}
         if cfg.family == "moe" and cfg.first_layer_dense:
-            out["kv0"] = attention.init_kv_cache(cfg, batch, max_len, device=device)
+            out["kv0"] = attention.init_kv_cache(cfg, batch, max_len, device=device, kv_heads=kv_heads)
         return out
     if cfg.family == "hybrid":
         groups, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
         ms = ssm.mamba2_state_init(cfg, batch, device=device)
-        kv = attention.init_kv_cache(cfg, batch, max_len, device=device)
+        kv = attention.init_kv_cache(cfg, batch, max_len, device=device, kv_heads=kv_heads)
         return {"mamba": {k: _stacked(x, groups, per) for k, x in ms.items()},
                 "kv": {k: _stacked(x, groups) for k, x in kv.items()}}
     if cfg.family == "ssm":
@@ -615,7 +682,7 @@ def _attn_decode_body(lp, h, kv, length, cfg):
     )
     h = h + a
     if "mlp" in lp:
-        return h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind)
+        return h + layers.mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h), cfg.mlp_kind, _d_ff(cfg))
     y, _ = moe.moe_block(lp["moe"], layers.rmsnorm(lp["mlp_norm"], h), cfg)
     return h + y
 
@@ -670,4 +737,4 @@ def decode_step(
     else:
         raise ValueError(f"no decode state for family {cfg.family!r}")
     h = layers.rmsnorm(params["final_norm"], h)
-    return layers.unembed(params["embed"], h, cfg), state
+    return _whole_logits(layers.unembed(params["embed"], h, cfg), cfg), state

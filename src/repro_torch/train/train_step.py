@@ -23,8 +23,9 @@ MoE aux (load-balance) loss is added with weight ``aux_weight``.
 model a ``transformer.ShardedTransformer``, the batch this rank's rows
 (``TokenPipeline.device_batch``). Each rank computes the global loss (the
 masked token sum and count all-reduced over the batch axes) on its rows,
-gathering one layer's weights at a time; each layer's gradients are
-summed over the batch axes straight into each rank's shards
+gathering one layer's weights at a time (under "tp" only along the batch
+axes: each rank computes its share along "model", the CE vocabulary-
+parallel); each layer's gradients are summed over the batch axes straight into each rank's shards
 (reduce-scatters), and ``apply_updates`` updates the shards with the norm
 and the compressor's scales taken over whole leaves.
 """
@@ -57,8 +58,11 @@ def cross_entropy(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, 
     return nll.sum() / n, n
 
 
-def _masked_nll(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, Tensor]:
-    """(per-position CE, 0 where masked; the mask of labels >= 0)."""
+def _masked_nll(logits: Tensor, labels: Tensor, shift: bool, split=None) -> tuple[Tensor, Tensor]:
+    """(per-position CE, 0 where masked; the mask of labels >= 0).
+    ``split``: the ``collectives.Split`` whose vocabulary columns
+    ``logits`` are (the mesh step under "tp"): the CE over the whole
+    vocabulary from them (``collectives.vocab_nll``)."""
     if shift:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -68,6 +72,8 @@ def _masked_nll(logits: Tensor, labels: Tensor, shift: bool) -> tuple[Tensor, Te
     logits = logits[:, logits.shape[1] - S:].float()
     labels = labels[:, labels.shape[1] - S:]
     mask = labels >= 0
+    if split is not None:
+        return collectives.vocab_nll(logits, labels, split) * mask, mask
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
     return (lse - ll) * mask, mask
@@ -151,14 +157,16 @@ def make_mesh_loss_fn(cfg: ArchConfig, scfg: StepConfig) -> Callable:
     """``make_loss_fn`` for a ``ShardedTransformer`` on this rank's batch
     rows: the masked CE summed over the rows and all-reduced over the
     batch axes, over the all-reduced token count, so every rank holds the
-    global loss and its backward gives its own rows' share. The model's
-    aux loss is already the mean over the batch axes (``moe.moe_block``
-    under a mesh)."""
+    global loss and its backward gives its own rows' share. Under "tp" the
+    logits are the rank's vocabulary columns (``model.logits_split``) and
+    the CE is vocabulary-parallel; whole logits are never formed. The
+    model's aux loss is already the mean over the batch axes
+    (``moe.moe_block`` under a mesh)."""
 
     def loss_fn(model, batch: dict) -> tuple[Tensor, dict]:
         inputs = {k: v for k, v in batch.items() if k != "labels"}
         logits, aux = model(inputs, causal_mode=scfg.causal_mode)
-        nll, mask = _masked_nll(logits, batch["labels"], shift=not cfg.is_encoder)
+        nll, mask = _masked_nll(logits, batch["labels"], not cfg.is_encoder, model.logits_split)
         n = torch.clamp(collectives.reduce_sum(mask.sum(), model.batch_groups), min=1)
         loss = collectives.reduce_sum(nll.sum(), model.batch_groups) / n
         total = loss + scfg.aux_weight * aux

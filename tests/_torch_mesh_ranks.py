@@ -152,12 +152,24 @@ class _GatherParam(torch.autograd.Function):
 
 class _WholeGather(transformer.ShardedTransformer):
     """The mesh model with every leaf gathered whole before the forward
-    (``_GatherParam``) and the stacks taken apart into whole layers."""
+    (``_GatherParam``) and the stacks taken apart into whole layers. Its
+    blocks compute what the mesh model's do (under "tp" the rank's share,
+    cut from the whole leaves)."""
 
     def _params(self):
         full = transformer._zip_map(lambda p, pl: _GatherParam.apply(p, pl, self.mesh, self.batch_groups),
                                     self.param_tree(), self.placements)
         return {k: transformer._views(v, self._depth[k]) for k, v in full.items()}
+
+
+class _Unsplit(_WholeGather):
+    """The whole-leaf step as it was before the split: every leaf gathered
+    whole and every rank computing the whole of each block on its rows
+    (no share along "model"; the expert-parallel MoE as before)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.split = False
 
 
 def grads_job(spec: dict) -> dict:
@@ -190,6 +202,161 @@ def grads_job(spec: dict) -> dict:
                                 "shapes": [tuple(g.shape) for g in res["layer"][1]] == [
                                     tuple(g.shape) for g in res["whole"][1]]}
     return out
+
+
+def tp_split_job(spec: dict) -> dict:
+    """One gradient of the mesh loss on a (2, 2) mesh under "tp" for each of
+    the spec's archs, from a seeded draw at act fp32, through the mesh
+    model (each rank computing its share of every block along "model")
+    and through ``_Unsplit`` (every leaf gathered whole, every block
+    computed whole) on the same weights and rows, each under
+    ``FlopCounterMode``: the losses, per leaf and over the rank's whole
+    gradient the largest |difference| over the largest |oracle| value, the
+    mesh model's collectives, each step's FLOPs, and the rank's KV heads."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for arch in (*spec["archs"], *spec["mixers"]):
+        cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
+        pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
+        full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
+        scfg = ts.StepConfig(aux_weight=spec["aux_weight"])
+        grad_fn = ts.make_grad_fn(cfg, scfg, ts.make_mesh_loss_fn(cfg, scfg))
+        res = {}
+        for name, cls in (("split", transformer.ShardedTransformer), ("whole", _Unsplit)):
+            model = cls(cfg, full, mesh, profile="tp")
+            batch = {k: v.to_local() for k, v in pipe.device_batch(0, mesh, model.batch_axes).items()}
+            collectives.reset_collective_counts()
+            with FlopCounterMode(display=False) as fc:
+                total, _, grads = grad_fn(model, batch)
+            res[name] = (float(total), grads, collectives.collective_counts(), fc.get_total_flops())
+        paths = ["/".join(p) for p, _ in transformer._paths(model.param_tree())]
+        diff = {p: float((a - b).abs().max()) for p, a, b in zip(paths, res["split"][1], res["whole"][1])}
+        scale = {p: float(b.abs().max()) for p, b in zip(paths, res["whole"][1])}
+        split = transformer.ShardedTransformer(cfg, full, mesh, profile="tp")
+        out[arch] = {"total": (res["split"][0], res["whole"][0]), "collectives": res["split"][2],
+                     "flops": (res["split"][3], res["whole"][3]),
+                     "rel": {p: diff[p] / max(scale[p], 1e-30) for p in paths},
+                     "rel_all": max(diff.values()) / max(scale.values()),
+                     "rows": batch["tokens"].shape[0], "kv_heads": split.kv_split.cache_heads(cfg),
+                     "gathered": split.kv_split.gathered}
+    return out
+
+
+def moe_split_job(spec: dict) -> dict:
+    """``moe_block`` under the "tp" split on a (2, 2) mesh where "model"
+    does not divide ``n_experts`` (so no expert parallelism): this rank's
+    "data" rows of the spec's inputs, its columns of every expert's
+    ``gate``/``up`` and rows of ``down`` and of the shared experts' (the
+    router whole): output, aux, collectives, and the gradients of
+    sum(y · cot) + c · aux for x and each held block."""
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **spec["cfg"])
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    d, m = mesh.get_coordinate()
+    rows = spec["x"].shape[0] // 2
+    f, fs = cfg.d_ff_expert, cfg.n_shared_experts * cfg.d_ff_expert
+    cut = {"router": lambda a: a, "gate": lambda a: a[..., m * f // 2 : (m + 1) * f // 2],
+           "up": lambda a: a[..., m * f // 2 : (m + 1) * f // 2],
+           "down": lambda a: a[:, m * f // 2 : (m + 1) * f // 2]}
+    params = {k: torch.tensor(cut[k](spec["params"][k]), requires_grad=True) for k in cut}
+    params["shared"] = {
+        "gate": {"w": torch.tensor(spec["params"]["shared"]["gate"]["w"][:, m * fs // 2 : (m + 1) * fs // 2],
+                                   requires_grad=True)},
+        "up": {"w": torch.tensor(spec["params"]["shared"]["up"]["w"][:, m * fs // 2 : (m + 1) * fs // 2],
+                                 requires_grad=True)},
+        "down": {"w": torch.tensor(spec["params"]["shared"]["down"]["w"][m * fs // 2 : (m + 1) * fs // 2],
+                                   requires_grad=True)}}
+    x = torch.tensor(spec["x"][d * rows : (d + 1) * rows], requires_grad=True)
+    collectives.reset_collective_counts()
+    with base.use_mesh(mesh, base.ACT_RULES, split=True):
+        y, aux = moe.moe_block(params, x, cfg, group_size=spec["group_size"])
+    fwd = collectives.collective_counts()
+    (y * torch.as_tensor(spec["cot"][d * rows : (d + 1) * rows])).sum().add(spec["aux_c"] * aux).backward()
+    return {"rows": (d * rows, (d + 1) * rows), "coord": (d, m), "y": _np(y), "aux": float(aux.detach()),
+            "collectives": fwd, "x_grad": _np(x.grad),
+            "grads": {"/".join(p): _np(t.grad) for p, t in transformer._paths(params)}}
+
+
+def attn_modes_job(spec: dict) -> dict:
+    """``attention_block`` (and 4 decode steps from an empty cache) under
+    the split on a (1, 4) mesh for each of the spec's head layouts, the
+    weights held whole (each rank takes its share of them): its output,
+    the gradients of sum(y · cot) for x and every leaf, the rank's
+    ``HeadSplit``, the decode outputs and the cache's kv heads."""
+    from repro_torch.models import attention
+
+    mesh = mesh_lib.make_mesh((1, 4), ("data", "model"), "cpu")
+    out = {}
+    for name, case in spec["cases"].items():
+        cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), **case["cfg"])
+        params = {k: torch.tensor(v, requires_grad=True) for k, v in case["params"].items()}
+        x = torch.tensor(case["x"], requires_grad=True)
+        with base.use_mesh(mesh, base.ACT_RULES, split=True):
+            y, _ = attention.attention_block(params, x, cfg)
+            hs = attention.head_split(cfg, 4, collectives.coordinate(mesh, "model"))
+            (y * torch.as_tensor(case["cot"])).sum().backward()
+            cache = attention.init_kv_cache(cfg, x.shape[0], 4, dtype=torch.float32, device="cpu",
+                                            kv_heads=hs.cache_heads(cfg))
+            with torch.no_grad():
+                dec = [attention.decode_attention(params, x[:, i : i + 1].detach(), cache, i, cfg)[0]
+                       for i in range(4)]
+        out[name] = {"y": _np(y), "x_grad": _np(x.grad), "grads": {k: _np(v.grad) for k, v in params.items()},
+                     "split": dataclasses.asdict(hs), "decode": _np(torch.cat(dec, 1)),
+                     "cache_heads": tuple(cache["k"].shape)[2]}
+    return out
+
+
+def vocab_ce_job(spec: dict) -> dict:
+    """The vocabulary-parallel cross entropy on a (2, 2) mesh: each rank
+    takes its "model" half of the spec's logits' vocabulary
+    (``collectives.Split``) and the whole batch, and computes the masked
+    mean CE (``train_step._masked_nll`` with the split, the mean over the
+    unmasked tokens as ``cross_entropy`` takes it) and the gradient of it
+    for its columns."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    sp = collectives.Split.of(mesh)
+    out = {}
+    for name, (logits, labels) in spec["cases"].items():
+        lo, hi = sp.span(logits.shape[-1])
+        local = torch.tensor(logits[..., lo:hi], requires_grad=True)
+        collectives.reset_collective_counts()
+        nll, mask = ts._masked_nll(local, torch.as_tensor(labels), True, sp)
+        loss = nll.sum() / torch.clamp(mask.sum(), min=1)
+        loss.backward()
+        out[name] = {"loss": float(loss.detach()), "grad": _np(local.grad), "span": (lo, hi),
+                     "collectives": collectives.collective_counts()}
+    return out
+
+
+def tp_decode_job(spec: dict) -> dict:
+    """Greedy decoding of reduced qwen1.5-0.5b under "tp" on a (2, 2) mesh
+    from a seeded draw: each "data" rank's rows of the spec's prompts fed
+    token by token through ``ShardedTransformer.decode_step``
+    (``make_serve_step``), then ``n_gen`` greedy tokens; the ids, the KV
+    caches' shapes, and the prefill's last-position logits
+    (``make_prefill_step``, gathered whole along "model")."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), act_dtype="float32")
+    full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
+    model = transformer.ShardedTransformer(cfg, full, mesh, profile="tp")
+    d, _ = mesh.get_coordinate()
+    rows = spec["prompts"].shape[0] // 2
+    prompts = torch.as_tensor(spec["prompts"][d * rows : (d + 1) * rows])
+    n_prompt = prompts.shape[1]
+    step = ts.make_serve_step(cfg)
+    with torch.no_grad():
+        last = ts.make_prefill_step(cfg)(model, {"tokens": prompts})
+        state = model.init_state(rows, n_prompt + spec["n_gen"])
+        shapes = [tuple(t.shape) for t in base.tree_leaves(state)]
+        for i in range(n_prompt):
+            nxt, _, state = step(model, prompts[:, i : i + 1], state, i)
+        ids = [nxt]
+        for i in range(spec["n_gen"] - 1):
+            nxt, _, state = step(model, nxt, state, n_prompt + i)
+            ids.append(nxt)
+    return {"rows": (d * rows, (d + 1) * rows), "ids": torch.cat(ids, 1).numpy(), "cache_shapes": shapes,
+            "prefill_last": _np(last)}
 
 
 def ep_job(spec: dict) -> dict:
@@ -295,7 +462,9 @@ def launcher_job(spec: dict) -> dict:
     return {"straight": straight, "failed": failed, "resumed": resumed}
 
 
-JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "grads": grads_job, "ep": ep_job,
+JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "grads": grads_job,
+        "tp_split": tp_split_job, "moe_split": moe_split_job, "attn_modes": attn_modes_job,
+        "vocab_ce": vocab_ce_job, "tp_decode": tp_decode_job, "ep": ep_job,
         "batch": batch_job, "shard_act": shard_act_job, "guard": guard_job, "launcher": launcher_job}
 
 

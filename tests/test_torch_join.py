@@ -7,6 +7,8 @@ sorted unique int64 pair sets must be byte-identical — or else every
 differing pair lies within 1e-5·max(1, δ) of δ in float64 (fp summation
 order differs between the two). Both are also held to brute force.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -123,3 +125,46 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def _nudge(x: torch.Tensor, gen: torch.Generator, most: int = 4) -> torch.Tensor:
+    """``x`` moved by a random whole number of ulps in [-most, most] per
+    element: what a different fp32 summation order does to a distance."""
+    steps = torch.randint(-most, most + 1, x.shape, generator=gen)
+    up, down = torch.full_like(x, float("inf")), torch.full_like(x, float("-inf"))
+    for _ in range(most):
+        x = torch.where(steps > 0, torch.nextafter(x, up), torch.where(steps < 0, torch.nextafter(x, down), x))
+        steps = steps - steps.sign()
+    return x
+
+
+@pytest.mark.parametrize("tighten", (True, False))
+@pytest.mark.parametrize("fused", (True, False))
+def test_join_exact_when_mapped_coordinates_round_differently(monkeypatch, tighten, fused):
+    """Lemma 4 on computed coordinates: a row's mapped coordinate is a sum
+    rounded in fp32, and the card's kernel sums in another order than the
+    plain path. On integer rows under l1 many pairs sit at exactly δ with
+    the triangle inequality tight along an anchor (every same-side pair of
+    a 1-feature set), so a δ-neighbour of a row on its cell's box face
+    lies a few ulps past a box expanded by exactly δ. The join must stay
+    exact with every coordinate nudged by up to 4 ulps."""
+    x = np.random.default_rng(0).integers(0, 120, size=(600, 1)).astype(np.float32)
+    delta = 4.0
+    gen = torch.Generator().manual_seed(0)
+    real_map_assign, real_call = spjoin.kops.map_assign, spjoin.mapping.SpaceMap.__call__
+
+    def map_assign(*args, **kwargs):
+        xm, cells, bits = real_map_assign(*args, **kwargs)
+        return _nudge(xm, gen), cells, bits
+
+    def space_map(self, v):
+        return _nudge(real_call(self, v), gen)
+
+    monkeypatch.setattr(spjoin.kops, "map_assign", map_assign)
+    monkeypatch.setattr(spjoin.mapping.SpaceMap, "__call__", space_map)
+    cfg = spjoin.JoinConfig(delta=delta, metric="l1", k=64, p=8, n_dims=1, tighten=tighten,
+                            map_fused=fused)
+    truth = spjoin.brute_force_pairs(x, delta, "l1", device="cpu")
+    for seed in range(4):
+        got = spjoin.join(x, dataclasses.replace(cfg, seed=seed), device="cpu")
+        assert got.pairs.tobytes() == truth.tobytes(), seed

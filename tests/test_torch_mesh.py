@@ -50,6 +50,64 @@ the JAX side is computed here.
   rank's gradient shard of every leaf equals the oracle's within a
   relative error of 1e-6 (of the leaf's largest value), and the step's
   collectives equal the contract checker's budget.
+* The split of the "tp" step (each rank computing its share of every
+  block along "model": attention by heads, MLPs and shared experts by
+  column and row, vocabulary-parallel embedding, logits and cross
+  entropy) against the whole-leaf step it replaced
+  (``_torch_mesh_ranks._Unsplit``: every leaf gathered whole, every block
+  computed whole) on reduced qwen1.5-0.5b, deepseek-moe-16b, granite-34b
+  (MQA: its one kv head split inside the head, k and v gathered whole
+  along "model") and llama4-scout-17b-a16e, one gradient on the (2, 2)
+  mesh at act fp32: the loss within rel TP_REL (1e-6; measured equal to
+  the last digit but for qwen's 8.6e-8), and each rank's gradient shards
+  within TP_GRAD_REL (2e-6) of their largest value, taken over the
+  rank's gradient as a whole. The row splits (``wo``, ``down``, the
+  unembedding's input gradient) add the ranks' partial sums in another
+  order than one product does, and the vocabulary-parallel log-sum-exp
+  rounds apart from the whole one by an ulp of the log-sum-exp: measured
+  5e-7 to 9.4e-7 for qwen, granite and llama4 and 1.375e-6 for deepseek
+  (its ``embed/tokens`` on rank 1). Per leaf the routers move most (1.47e-6
+  deepseek, 1.90e-6 llama4: top-k renormalisation leaves their gradients
+  near cancellation); the step's collectives equal the checker's restated budgets;
+  each rank's ``FlopCounterMode`` count of the split matmuls is half the
+  whole step's (the router's and the routed experts' products, expert
+  parallel in both, counted out). Reduced zamba2-2.7b and xlstm-1.3b,
+  whose Mamba2 and xLSTM mixers stay gathered whole along "model", are
+  held to the same loss bound and, zamba2, the same gradient bound;
+  xlstm's gradient to XLSTM_GRAD_REL (1e-4; measured 3.3e-5): its
+  recurrences amplify rounding, so that on one process a relative
+  perturbation of 1e-7 of the logits alone moves its gradient by 1.1e-5
+  of its largest element (qwen's by 4.1e-7).
+* ``moe_block`` under the split where "model" does not divide the
+  experts (3 experts on the (2, 2) mesh: no expert parallelism, each
+  expert's and the shared experts' FFN split by column and row, the
+  router whole, one all-reduce of the partial outputs): each rank's output
+  rows equal the whole batch's through the local path (rtol = atol =
+  1e-6), its aux the whole batch's (rel 1e-6), and the gradients of
+  sum(y · cot) + 0.1 · aux for x and for each rank's blocks, summed over
+  the "data" ranks, the whole batch's (rtol = atol = 1e-5).
+* The attention's head layouts under the split on a (1, 4) mesh, the
+  weights held whole: 10 heads on 5 kv heads (each rank's wo rows are
+  2.5 heads: q and k/v projected on the rank's columns and gathered
+  whole, the straddled heads computed on two ranks, kv heads expanded to
+  each q head where the groups do not line up), with q/k/v biases; and 2
+  heads on 1 kv head of width 6 (k/v replicated by the rules: computed
+  whole, their gradient summed over "model"). Outputs and 4 decode steps
+  from an empty cache (holding every kv head) against the unsplit block
+  (rtol = atol = 1e-5); x's gradient and each leaf's (the ranks' blocks
+  summed, a replicated leaf's whole on every rank) the same.
+* The vocabulary-parallel cross entropy on the (2, 2) mesh (each rank's
+  half of the vocabulary) against the JAX package's
+  ``train_step.cross_entropy`` on the same numpy logits: labels on both
+  halves with masked ones, and every label masked; rtol 1e-6. The
+  gradient of each rank's columns equals the single-process port's
+  within VOCAB_GRAD_REL of its largest value.
+* Greedy decoding of reduced qwen1.5-0.5b under "tp" on the (2, 2) mesh
+  (each "data" rank its prompt rows, 8 prompt tokens by decode, then 8
+  greedy tokens): the ids equal the single process's, each rank's KV
+  caches hold KV / 2 heads, and the prefill's last-position logits,
+  gathered whole along "model", the single process's within rtol = atol =
+  1e-5.
 * Each rank's parameter and ``mu`` shapes are its shards under
   ``make_shardings``, and together the ranks hold each leaf once per
   replica.
@@ -104,6 +162,14 @@ MOE_AUX = dict(arch="deepseek-moe-16b", cfg=dict(act_dtype="float32"), seed=1, b
 GRADS = dict(cells=(("qwen1.5-0.5b", "tp"), ("qwen1.5-0.5b", "fsdp"), ("deepseek-moe-16b", "tp")), seed=1,
              batch=8, seq=32, aux_weight=0.01)
 GRAD_REL = 1e-6
+TP_SPLIT = dict(archs=("qwen1.5-0.5b", "deepseek-moe-16b", "granite-34b", "llama4-scout-17b-a16e"),
+                mixers=("zamba2-2.7b", "xlstm-1.3b"), seed=1, batch=8, seq=32, aux_weight=0.01)
+TP_REL = 1e-6
+TP_GRAD_REL = 2e-6
+XLSTM_GRAD_REL = 1e-4
+VOCAB_GRAD_REL = 1e-6
+TP_DECODE = dict(seed=1, n_prompt=8, n_gen=8, batch=4)
+MOE_SPLIT_CFG = dict(n_experts=3, top_k=2, n_shared_experts=2, capacity_factor=8.0, act_dtype="float32")
 EP_CFG = dict(n_experts=8, top_k=2, n_shared_experts=2, capacity_factor=8.0)
 LAUNCH_ARGV = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--steps", "2",
                "--global-batch", "4", "--seq-len", "32", "--log-every", "1"]
@@ -119,8 +185,8 @@ def _ref_weights(arch: str):
     return jcfg, jax.tree.map(np.asarray, jbase.init_params(jax.random.PRNGKey(1), jtf.model_defs(jcfg)))
 
 
-def _ep_inputs() -> dict:
-    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **EP_CFG)
+def _ep_inputs(cfg_kw: dict = EP_CFG) -> dict:
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **cfg_kw)
     rng = np.random.default_rng(0)
 
     def draw(d):
@@ -128,9 +194,44 @@ def _ep_inputs() -> dict:
             return {k: draw(v) for k, v in d.items()}
         return (rng.normal(size=d.shape) / np.sqrt(base.fan_in_of(d))).astype(np.float32)
 
-    return dict(cfg=EP_CFG, params=draw(moe.moe_defs(cfg)), group_size=16, aux_c=0.1,
+    return dict(cfg=cfg_kw, params=draw(moe.moe_defs(cfg)), group_size=16, aux_c=0.1,
                 x=rng.normal(size=(4, 32, cfg.d_model)).astype(np.float32),
                 cot=rng.normal(size=(4, 32, cfg.d_model)).astype(np.float32))
+
+
+def _vocab_cases() -> dict:
+    """(logits (2, 17, 64), labels (2, 17)) per case: labels on both halves
+    of the vocabulary with a masked one in four, and every label masked."""
+    rng = np.random.default_rng(2)
+    logits = (3 * rng.normal(size=(2, 17, 64))).astype(np.float32)
+    labels = rng.integers(0, 64, size=(2, 17)).astype(np.int32)
+    labels[rng.random(size=labels.shape) < 0.25] = -1
+    return {"mixed": (logits, labels), "masked": (logits, np.full_like(labels, -1))}
+
+
+ATTN_MODES = {"qcols_kvcols_bias": dict(n_heads=10, n_kv_heads=5, head_dim=8, d_model=32, qkv_bias=True),
+              "qcols_kvwhole": dict(n_heads=2, n_kv_heads=1, head_dim=6, d_model=32, qkv_bias=False)}
+
+
+def _attn_modes_inputs() -> dict:
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(4)
+    cases = {}
+    for name, kw in ATTN_MODES.items():
+        cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), act_dtype="float32", **kw)
+        params = {k: (rng.normal(size=d.shape) / np.sqrt(base.fan_in_of(d))).astype(np.float32)
+                  for k, d in attention.attn_defs(cfg).items()}
+        cases[name] = dict(cfg=dict(kw, act_dtype="float32"), params=params,
+                           x=rng.normal(size=(2, 32, cfg.d_model)).astype(np.float32),
+                           cot=rng.normal(size=(2, 32, cfg.d_model)).astype(np.float32))
+    return {"cases": cases}
+
+
+def _decode_prompts() -> np.ndarray:
+    cfg = configs.get_reduced("qwen1.5-0.5b")
+    return np.random.default_rng(3).integers(0, cfg.vocab, (TP_DECODE["batch"], TP_DECODE["n_prompt"])).astype(
+        np.int32)
 
 
 @pytest.fixture(scope="module")
@@ -139,7 +240,9 @@ def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh4")
     _, params = _ref_weights(DP_TP["arch"])
     specs = {"dp_tp": dict(DP_TP, params=params), "moe_remat": MOE_REMAT, "moe_aux": dict(MOE_AUX, block=_ep_inputs()),
-             "grads": GRADS,
+             "grads": GRADS, "tp_split": TP_SPLIT, "moe_split": _ep_inputs(MOE_SPLIT_CFG),
+             "attn_modes": _attn_modes_inputs(), "vocab_ce": {"cases": _vocab_cases()},
+             "tp_decode": dict(TP_DECODE, prompts=_decode_prompts()),
              "ep": _ep_inputs(), "batch": {}, "shard_act": {}, "guard": {},
              "launcher": dict(argv=LAUNCH_ARGV, tmp=str(tmp))}
     ctx = mp.get_context("spawn")
@@ -390,6 +493,205 @@ def test_layer_gather_grad_shards_match_whole_gather(world, arch, profile):
         for k, v in res["rel"].items():
             assert v <= GRAD_REL, (k, v)
         assert res["collectives"] == budget
+
+
+@pytest.mark.parametrize("arch", TP_SPLIT["archs"])
+def test_tp_split_step_matches_whole_layer_step(world, arch):
+    """The split "tp" step against the whole-leaf step on the same weights
+    and rows: the loss, each rank's gradient shards, the collectives."""
+    budget = _budgets().port_budget(f"mesh_step[{arch} reduced, tp, (2, 2)]")
+    for r in range(ranks.WORLD):
+        res = world[r]["tp_split"][arch]
+        worst = sorted(res["rel"], key=res["rel"].get)[-3:]
+        print(f"{arch} rank {r}: total {res['total'][0]!r} vs {res['total'][1]!r}; gradient rel {res['rel_all']:.3e}; "
+              f"worst leaves {[(k, round(res['rel'][k], 10)) for k in worst]}; collectives "
+              f"{res['collectives']}; gathered projections {res['gathered']}")
+        assert res["total"][0] == pytest.approx(res["total"][1], rel=TP_REL)
+        assert res["rel_all"] <= TP_GRAD_REL
+        assert res["collectives"] == budget
+    assert world[0]["tp_split"]["granite-34b"]["gathered"] == ("wk", "wv")
+    assert world[0]["tp_split"]["qwen1.5-0.5b"]["gathered"] == ()
+
+
+@pytest.mark.parametrize("arch", TP_SPLIT["mixers"])
+def test_tp_split_keeps_mixers_whole(world, arch):
+    """zamba2 (its shared attention + MLP block split, the Mamba2 layers
+    gathered whole along "model") and xlstm (its mLSTM and sLSTM layers
+    gathered whole, the vocabulary split) under the split "tp" step
+    against the whole-leaf step: the loss within TP_REL, each rank's
+    gradient shards within TP_GRAD_REL (xlstm: XLSTM_GRAD_REL, module
+    docstring), the mixers' leaves gathered along "model" as well as
+    "data"."""
+    for r in range(ranks.WORLD):
+        res = world[r]["tp_split"][arch]
+        worst = sorted(res["rel"], key=res["rel"].get)[-3:]
+        print(f"{arch} rank {r}: total {res['total'][0]!r} vs {res['total'][1]!r}; gradient rel {res['rel_all']:.3e}; "
+              f"worst leaves {[(k, round(res['rel'][k], 10)) for k in worst]}; collectives {res['collectives']}")
+        assert res["total"][0] == pytest.approx(res["total"][1], rel=TP_REL)
+        assert res["rel_all"] <= (XLSTM_GRAD_REL if arch == "xlstm-1.3b" else TP_GRAD_REL)
+        # per mixer layer one gather along "model" and one along "data", again in remat's recompute
+        assert res["collectives"]["all_gather"] > 2 * configs.get_reduced(arch).n_layers
+
+
+def _unsplit_flops(cfg, rows: int, seq: int) -> float:
+    """The FLOPs of one mesh gradient that the split leaves whole on a rank:
+    per MoE layer the router's product and the routed experts' (each rank
+    its n_experts / 2 under expert parallelism, split and whole step
+    alike), in the forward, remat full's recompute and the backward (two
+    products per forward one)."""
+    if cfg.family != "moe":
+        return 0.0
+    gs = min(2048, seq)
+    n_groups = seq // gs
+    C = moe._capacity(gs, cfg)
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    routed = 3 * 2 * (E // 2) * (rows * C) * d * f * n_groups
+    router = 2 * rows * seq * d * E
+    fwd = 2 if cfg.remat == "full" else 1
+    n_moe = cfg.n_layers - (1 if cfg.first_layer_dense else 0)
+    return float(n_moe * (fwd + 2) * (routed + router))
+
+
+@pytest.mark.parametrize("arch", TP_SPLIT["archs"])
+def test_tp_split_halves_matmul_flops(world, arch):
+    """Each rank's FlopCounterMode count of the split matmuls (every product
+    but the MoE's router and routed experts) is half the whole step's."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
+    for r in range(ranks.WORLD):
+        res = world[r]["tp_split"][arch]
+        split, whole = res["flops"]
+        kept = _unsplit_flops(cfg, res["rows"], TP_SPLIT["seq"])
+        print(f"{arch} rank {r}: FLOPs split {split} whole {whole}, left whole {kept}")
+        assert 0 <= kept < split < whole
+        assert 2 * (split - kept) == whole - kept
+
+
+def test_moe_split_without_expert_parallelism_matches_local_path(world):
+    spec = _ep_inputs(MOE_SPLIT_CFG)
+    cfg = dataclasses.replace(configs.get_reduced("deepseek-moe-16b"), **MOE_SPLIT_CFG)
+    params = base.tree_map(lambda a: torch.tensor(a, requires_grad=True), spec["params"])
+    x = torch.tensor(spec["x"], requires_grad=True)
+    y, aux = moe.moe_block(params, x, cfg, group_size=spec["group_size"])
+    (y * torch.as_tensor(spec["cot"])).sum().add(spec["aux_c"] * aux).backward()
+    aux = aux.detach()
+    want = {"/".join(p): _np(t.grad) for p, t in transformer._paths(params)}
+    f, fs = cfg.d_ff_expert, cfg.n_shared_experts * cfg.d_ff_expert
+    summed: dict = {}
+    for r in range(ranks.WORLD):
+        res = world[r]["moe_split"]
+        lo, hi = res["rows"]
+        d, m = res["coord"]
+        print(f"rank {r} rows [{lo}, {hi}) model {m}: aux {res['aux']!r} vs {float(aux)!r}; forward collectives "
+              f"{res['collectives']}")
+        np.testing.assert_allclose(res["y"], _np(y)[lo:hi], rtol=1e-6, atol=1e-6)
+        assert res["aux"] == pytest.approx(float(aux), rel=1e-6)
+        np.testing.assert_allclose(res["x_grad"], _np(x.grad)[lo:hi], rtol=1e-5, atol=1e-5)
+        # per token group: me || ce over "data", then the partial outputs and the shared experts' over "model"
+        n_groups = x.shape[1] // spec["group_size"]
+        assert res["collectives"] == {"all_gather": 0, "all_reduce": n_groups + 1, "reduce_scatter": 0}
+        for k, g in res["grads"].items():
+            summed.setdefault((k, m), np.zeros_like(g))
+            summed[(k, m)] += g
+    blocks = {"router": lambda a, m: a, "gate": lambda a, m: a[..., m * f // 2 : (m + 1) * f // 2],
+              "up": lambda a, m: a[..., m * f // 2 : (m + 1) * f // 2],
+              "down": lambda a, m: a[:, m * f // 2 : (m + 1) * f // 2],
+              "shared/gate/w": lambda a, m: a[:, m * fs // 2 : (m + 1) * fs // 2],
+              "shared/up/w": lambda a, m: a[:, m * fs // 2 : (m + 1) * fs // 2],
+              "shared/down/w": lambda a, m: a[m * fs // 2 : (m + 1) * fs // 2]}
+    for (k, m), g in summed.items():
+        if k == "router" and m == 1:  # the router's gradient is whole on every "model" rank
+            continue
+        np.testing.assert_allclose(g, blocks[k](want[k], m), rtol=1e-5, atol=1e-5, err_msg=k)
+    assert {k for k, _ in summed} == set(blocks)
+
+
+@pytest.mark.parametrize("case", list(ATTN_MODES))
+def test_attention_head_layouts_under_split_match_whole_block(world, case):
+    from repro_torch.models import attention
+
+    spec = _attn_modes_inputs()["cases"][case]
+    cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), **spec["cfg"])
+    params = {k: torch.tensor(v, requires_grad=True) for k, v in spec["params"].items()}
+    x = torch.tensor(spec["x"], requires_grad=True)
+    y, _ = attention.attention_block(params, x, cfg)
+    (y * torch.as_tensor(spec["cot"])).sum().backward()
+    cache = attention.init_kv_cache(cfg, x.shape[0], 4, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        dec = torch.cat([attention.decode_attention(params, x[:, i : i + 1].detach(), cache, i, cfg)[0]
+                         for i in range(4)], 1)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    summed = {k: np.zeros_like(_np(v.grad)) for k, v in params.items()}
+    splits = []
+    for r in range(ranks.WORLD):
+        res = world[r]["attn_modes"][case]
+        splits.append(res["split"])
+        print(f"{case} rank {r}: {res['split']}, cache kv heads {res['cache_heads']}")
+        np.testing.assert_allclose(res["y"], _np(y), **tol)
+        np.testing.assert_allclose(res["decode"], _np(dec), **tol)
+        np.testing.assert_allclose(res["x_grad"], _np(x.grad), **tol)
+        assert res["cache_heads"] == cfg.n_kv_heads
+        for k, g in res["grads"].items():
+            if res["split"]["kv"] == "whole" and k in ("wk", "wv", "bk", "bv"):
+                np.testing.assert_allclose(g, _np(params[k].grad), err_msg=k, **tol)
+            else:
+                summed[k] += g
+    for k, g in summed.items():
+        if not (splits[0]["kv"] == "whole" and k in ("wk", "wv", "bk", "bv")):
+            np.testing.assert_allclose(g, _np(params[k].grad), err_msg=k, **tol)
+    assert all(sp["q"] == "cols" for sp in splits)
+    if case == "qcols_kvcols_bias":  # rank 1 attends with heads 2-4 on kv heads 1, 1, 2: expanded
+        assert [sp["heads"] for sp in splits] == [(0, 3), (2, 5), (5, 8), (7, 10)]
+        assert splits[1]["kv_heads"] == (1, 3) and {sp["kv"] for sp in splits} == {"cols"}
+    else:
+        assert {sp["kv"] for sp in splits} == {"whole"}
+
+
+@pytest.mark.parametrize("case", ["mixed", "masked"])
+def test_vocab_parallel_cross_entropy_matches_reference(world, case):
+    logits, labels = _vocab_cases()[case]
+    want, n = jts.cross_entropy(jnp.asarray(logits), jnp.asarray(labels), True)
+    t = torch.tensor(logits, requires_grad=True)
+    loss, _ = ts.cross_entropy(t, torch.as_tensor(labels), True)
+    loss.backward()
+    g = _np(t.grad)
+    for r in range(ranks.WORLD):
+        res = world[r]["vocab_ce"][case]
+        lo, hi = res["span"]
+        gap = float(np.abs(res["grad"] - g[..., lo:hi]).max() / max(np.abs(g).max(), 1e-30))
+        print(f"{case} rank {r} columns [{lo}, {hi}): loss {res['loss']!r} vs reference {float(want)!r}; gradient "
+              f"rel {gap:.3e}; collectives {res['collectives']}")
+        assert res["loss"] == pytest.approx(float(want), rel=1e-6, abs=0 if case == "mixed" else 1e-30)
+        assert gap <= VOCAB_GRAD_REL
+        assert res["collectives"]["all_reduce"] == 2 and res["collectives"]["all_gather"] == 0
+    assert {world[r]["vocab_ce"][case]["span"] for r in range(ranks.WORLD)} == {(0, 32), (32, 64)}
+    if case == "mixed":
+        assert int(n) > 0 and (labels[:, 1:] >= 32).any() and ((labels[:, 1:] >= 0) & (labels[:, 1:] < 32)).any()
+
+
+def test_tp_greedy_decode_matches_single_process(world):
+    cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), act_dtype="float32")
+    model = train_lib.build_model(cfg, seed=TP_DECODE["seed"], device="cpu")
+    prompts = torch.as_tensor(_decode_prompts())
+    n_prompt, n_gen = TP_DECODE["n_prompt"], TP_DECODE["n_gen"]
+    step = ts.make_serve_step(cfg)
+    with torch.no_grad():
+        last = _np(ts.make_prefill_step(cfg)(model, {"tokens": prompts}))
+        state = model.init_state(prompts.shape[0], n_prompt + n_gen)
+        for i in range(n_prompt):
+            nxt, _, state = step(model, prompts[:, i : i + 1], state, i)
+        ids = [nxt]
+        for i in range(n_gen - 1):
+            nxt, _, state = step(model, nxt, state, n_prompt + i)
+            ids.append(nxt)
+    want = torch.cat(ids, 1).numpy()
+    for r in range(ranks.WORLD):
+        res = world[r]["tp_decode"]
+        lo, hi = res["rows"]
+        print(f"rank {r} rows [{lo}, {hi}): ids {res['ids'].tolist()} vs {want[lo:hi].tolist()}; caches "
+              f"{res['cache_shapes']}")
+        assert np.array_equal(res["ids"], want[lo:hi])
+        assert res["cache_shapes"] == [(cfg.n_layers, hi - lo, n_prompt + n_gen, cfg.n_kv_heads // 2, cfg.hd)] * 2
+        np.testing.assert_allclose(res["prefill_last"], last[lo:hi], rtol=1e-5, atol=1e-5)
 
 
 class _Fake:
