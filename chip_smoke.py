@@ -108,8 +108,13 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    wo, its FFN columns and rows, its vocabulary columns of
                    the loss; the partials summed in rank order) against
                    the whole layer and the whole loss, fp32 within the
-                   stated tolerance, bf16 logged. Its seconds come out of
-                   the main path's share too;
+                   stated tolerance, bf16 logged; and one full-width
+                   Mamba2 layer of zamba2-2.7b and one mLSTM and one sLSTM
+                   layer of xlstm-1.3b as 2, 4 and 16 virtual ranks
+                   (threads running each rank's share function, their
+                   collectives exchanged through a barrier) against the
+                   whole layer, fp32 within the stated bar, bf16 logged.
+                   Its seconds come out of the main path's share too;
   lm_dryrun      — the dry run (launch.dryrun, launch.dryrun_opt; meta
                    tensors in a fake world, in two subprocesses run beside
                    the card step; no kernel of the repo, the launch counts
@@ -161,7 +166,10 @@ Phases, in order; any failure raises and exits non-zero (nothing is caught):
                    verify seconds, QPS, p50/p99), two checked against brute
                    force, save -> load -> query byte-identical, and one
                    insert_batch of 1 % of the rows with 256 delta rows
-                   checked by brute force;
+                   checked by brute force; then an index over 45,000
+                   aol-like integer q-gram profiles at l1 delta = 4 (many
+                   pairs at exactly delta), whose query batch and insert
+                   must equal brute force byte for byte;
   distributed    — an NCCL process group of world size 1 on the card:
                    distributed_join over the compact join's rows with its
                    config (p = 16, prune pivot, placement lpt, emit
@@ -216,6 +224,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1638,7 +1647,50 @@ def phase_serving(z: torch.Tensor, delta: float) -> tuple[object, list]:
     rows = n_old + torch.randperm(n_ins, device="cuda")[:256]
     log(f"insert spot check: {spot_check(full, new_pairs, delta, rows)}")
     assert idx.n_rows == n_old + n_ins and (new_pairs[:, 1] >= n_old).all()
+    check_index_integer_rows()
     return idx, batches
+
+
+INT_INDEX_ROWS, INT_INDEX_QUERIES, INT_INDEX_INSERT = 45_000, 2_500, 2_500  # aol-like q-gram rows
+INT_INDEX_DELTA = 4.0  # l1 on integer profiles: many pairs at exactly delta
+
+
+def check_index_integer_rows() -> None:
+    """The index on integer rows, where many pairs sit at exactly delta and
+    the card's map-assign sums a coordinate in another order than the
+    plain path: aol-like q-gram profiles (``vectorize.qgram_profile`` of
+    ``synthetic.strings``, seed 4), an index over INT_INDEX_ROWS, a query
+    batch of INT_INDEX_QUERIES and an insert of INT_INDEX_INSERT rows, l1
+    at delta = 4. l1 distances of integer rows are exact in fp32, so the
+    query's and the insert's pairs must equal brute force byte for byte.
+    The launch counts are set to 0 just before and read just after."""
+    n = INT_INDEX_ROWS + INT_INDEX_QUERIES + INT_INDEX_INSERT
+    strs = synthetic.strings(n, mutate=0.12, n_templates=n // STRINGS_PER_TEMPLATE, seed=4)
+    rows = torch.as_tensor(vectorize.qgram_profile(strs, q=2, dim=64)).cuda()
+    x, q = rows[:INT_INDEX_ROWS], rows[INT_INDEX_ROWS : INT_INDEX_ROWS + INT_INDEX_QUERIES]
+    new = rows[INT_INDEX_ROWS + INT_INDEX_QUERIES :]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx = index.build_index(x, spjoin.JoinConfig(delta=INT_INDEX_DELTA, metric="l1"))
+    got_q = idx.query_batch(q)
+    got_i, st = idx.insert_batch(new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_q = index.brute_force_query(x, q, INT_INDEX_DELTA, "l1")
+    cross = index.brute_force_query(x, new, INT_INDEX_DELTA, "l1")
+    own = spjoin.brute_force_pairs(new, INT_INDEX_DELTA, "l1")
+    want_i = np.unique(np.concatenate([np.stack([cross[:, 0], INT_INDEX_ROWS + cross[:, 1]], 1),
+                                       INT_INDEX_ROWS + own]), axis=0).astype(np.int64)
+    at_delta = int((torch.cdist(q, x, p=1) == INT_INDEX_DELTA).sum())
+    ok = got_q.tobytes() == want_q.tobytes() and got_i.tobytes() == want_i.tobytes()
+    log(f"integer-row index (aol-like q-gram profiles, {INT_INDEX_ROWS} rows, l1 delta {INT_INDEX_DELTA}): "
+        f"query batch of {INT_INDEX_QUERIES}: {len(got_q)} pairs vs brute force {len(want_q)} ({at_delta} at exactly "
+        f"delta); insert of {INT_INDEX_INSERT}: {len(got_i)} new pairs vs {len(want_i)} (cross {st.n_cross_pairs}, "
+        f"self {st.n_self_pairs}); build + query + insert {secs:.3f}s; launch counts {json.dumps(counts)}: "
+        f"{'equal' if ok else 'DIFFERENT'}")
+    assert counts["map_assign"] > 0, counts
+    assert ok
 
 
 def phase_distributed(x: torch.Tensor, delta: float, compact, idx, batches: list) -> dict:
@@ -2913,12 +2965,159 @@ def lm_mesh_virtual(cfg=None, device: str = "cuda") -> bool:
     return ok
 
 
+class VirtualModelAxis:
+    """m virtual "model" ranks as threads of this process, standing in for
+    ``torch.distributed`` inside ``repro_torch.models.collectives`` (its
+    module attribute ``dist`` swapped for this object while ``run`` runs):
+    every collective the blocks make (``copy_to``'s and ``reduce_sum``'s
+    all-reduces, ``gather_last``, ``scatter_last``) is exchanged through
+    a barrier, each rank's tensor read in place and the sum taken in rank
+    order. The threads launch on one stream, so a rank's reads of another
+    rank's tensor run after the kernels that wrote it."""
+
+    def __init__(self, m: int):
+        self.m, self.slots = m, [None] * m
+        self.barrier = threading.Barrier(m)
+        self.local = threading.local()
+
+    def get_world_size(self, group=None) -> int:
+        return self.m
+
+    def get_rank(self, group=None) -> int:
+        return self.local.rank
+
+    def _each(self, t: torch.Tensor) -> list:
+        self.slots[self.local.rank] = t
+        self.barrier.wait()
+        return list(self.slots)
+
+    @staticmethod
+    def _total(parts: list) -> torch.Tensor:
+        out = parts[0].clone()
+        for t in parts[1:]:
+            out = out + t
+        return out
+
+    def all_reduce(self, x, op=None, group=None) -> None:  # SUM: the mixers make no other
+        total = self._total(self._each(x))
+        self.barrier.wait()
+        x.copy_(total)
+
+    def all_gather_into_tensor(self, out, x, group=None) -> None:
+        out.copy_(torch.cat([t.reshape(-1) for t in self._each(x)]))
+        self.barrier.wait()
+
+    def reduce_scatter_tensor(self, out, x, group=None) -> None:
+        r = self.local.rank
+        out.copy_(self._total([t.view(self.m, -1)[r] for t in self._each(x)]).view_as(out))
+        self.barrier.wait()
+
+    def run(self, fn) -> list:
+        """``fn(split)`` on every virtual rank (``collectives.Split(m, r,
+        [group])``, no autograd), in m threads; the ranks' results."""
+        out, errs = [None] * self.m, []
+
+        def rank(r: int) -> None:
+            self.local.rank = r
+            try:
+                with torch.no_grad():
+                    out[r] = fn(lm_collectives.Split(self.m, r, [self]))
+            except BaseException as e:  # noqa: BLE001 - re-raised below, after every thread ends
+                errs.append(e)
+                self.barrier.abort()
+
+        real = lm_collectives.dist
+        lm_collectives.dist = self
+        try:
+            threads = [threading.Thread(target=rank, args=(r,)) for r in range(self.m)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            lm_collectives.dist = real
+        if errs:
+            raise errs[0]
+        return out
+
+
+LM_MESH_MIXERS = (("zamba2-2.7b", "mamba"), ("xlstm-1.3b", "mlstm"), ("xlstm-1.3b", "slstm"))
+LM_MESH_MIXER_RANKS = (2, 4, 16)  # check (c): virtual "model" ranks of each mixer layer; 16 is
+#   the production mesh's (xlstm's 4 heads on 16 ranks: a quarter of a head's value columns)
+LM_MESH_MIXER_S = {"mamba": 2048, "mlstm": 2048, "slstm": 256}  # (c): tokens a row (sLSTM steps
+#   token by token: 256 of them keep its loop of 16 threads to a few seconds)
+LM_MESH_MIXER_REL = 1e-5  # (c): at fp32, max |sum of partials - whole| / max |whole| of a
+#   mixer layer's output, as qwen's layer (LM_MESH_VIRTUAL_REL) ...
+LM_MESH_MIXER_NOISE, LM_MESH_MIXER_TIMES = 1e-7, 10.0  # ... or, where larger, ten times the whole
+#   layer's own response to its input scaled by 1 + 1e-7 N(0, 1) (a rounding of fp32): the
+#   split moves the inputs of the recurrences by fp32 roundings (the column blocks' products, the
+#   ranks' partial sums), and the mLSTM's normaliser max(|q . n|, 1e-6) amplifies them (reduced
+#   xlstm on a CPU, lm_mesh_mixers(..., device="cpu"): a response of 3.3e-5, split gaps of 1e-5)
+
+
+def lm_mesh_mixers(cfgs: dict | None = None, device: str = "cuda", ranks=LM_MESH_MIXER_RANKS,
+                   seqs: dict | None = None) -> bool:
+    """Check (c) for the Mamba2 and xLSTM mixers: one full-width Mamba2
+    layer of zamba2-2.7b and one mLSTM and one sLSTM layer of xlstm-1.3b,
+    each computed as m virtual "model" ranks for each m of ``ranks``
+    (``VirtualModelAxis``: each rank's ``ssm.mamba2_share`` /
+    ``xlstm.mlstm_share`` / ``xlstm.slstm_share`` with the collectives
+    between its stages exchanged among the threads, the partial outputs
+    summed in rank order), against the whole layer (the same function
+    without a split) on the same seeded weights and inputs; at fp32
+    within LM_MESH_MIXER_REL or ten times the whole layer's response to
+    a rounding-sized perturbation of its input, at bf16 the gaps logged."""
+    seqs = seqs or LM_MESH_MIXER_S
+    shares = {"mamba": (lm_ssm.mamba2_defs, lm_ssm.mamba2_share),
+              "mlstm": (lm_xlstm.mlstm_defs, lm_xlstm.mlstm_share),
+              "slstm": (lm_xlstm.slstm_defs, lm_xlstm.slstm_share)}
+    ok = True
+    for arch, kind in LM_MESH_MIXERS:
+        cfg = (cfgs or {}).get(arch) or lm_configs.get(arch)
+        defs_of, share = shares[kind]
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = lm_base.init_params(gen, defs_of(cfg), torch.float32)
+        x = torch.randn((LM_MESH_VIRTUAL_B, seqs[kind], cfg.d_model), generator=gen, device=device)
+        for act in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, act_dtype=act)
+            xa = x.to(lm_layers.act_dt(c))
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                want = share(params, xa, c)[0].float()
+                t_whole = time.perf_counter() - t0
+                held = act == "float32"
+                response = 0.0
+                if held:
+                    noisy = xa * (1 + LM_MESH_MIXER_NOISE * torch.randn(xa.shape, generator=gen, device=device))
+                    response = float((share(params, noisy, c)[0] - want).abs().max() / want.abs().max())
+            bar = max(LM_MESH_MIXER_REL, LM_MESH_MIXER_TIMES * response)
+            for m in ranks:
+                axis = VirtualModelAxis(m)
+                t0 = time.perf_counter()
+                parts = axis.run(lambda sp: share(params, xa, c, sp)[0])
+                got = parts[0].float()
+                for p in parts[1:]:
+                    got = got + p.float()
+                secs = time.perf_counter() - t0
+                rel = float((got - want).abs().max() / want.abs().max())
+                ok_m = rel <= bar and bool(torch.isfinite(got).all())
+                ok = ok and (ok_m or not held)
+                log(f"[lm_mesh {elapsed():.1f}s] check (c) {cfg.name} {kind} layer at {act}, {m} virtual model "
+                    f"ranks ({LM_MESH_VIRTUAL_B} x {seqs[kind]} tokens, whole {t_whole:.3f}s, split {secs:.3f}s): "
+                    f"max |split - whole| / max |whole| {rel:.3e}"
+                    + (f"; the whole layer's response to a {LM_MESH_MIXER_NOISE} perturbation of its input "
+                       f"{response:.3e} (bar {bar:.3e}): {'ok' if ok_m else 'FAILED'}" if held else " (logged)"))
+        del params, x
+    return ok
+
+
 def phase_lm_mesh(smi: str) -> float:
     """The mesh layer on the card in an NCCL world of 1 rank (file
     rendezvous in a temporary directory, destroyed in a finally): checks
     (a) and (b) on a (1, 1) ("data", "model") mesh, (c) the "tp" split
-    as 2 and 4 virtual ranks, then (d) the repo's kernels launched 0
-    times. Returns the phase's seconds."""
+    of qwen's layer as 2 and 4 virtual ranks and of the Mamba2, mLSTM and
+    sLSTM layers as 2, 4 and 16 (``lm_mesh_mixers``), then (d) the repo's
+    kernels launched 0 times. Returns the phase's seconds."""
     import torch.distributed as dist
 
     log("== lm_mesh: the mesh layer (DP x TP step, expert-parallel MoE) in an NCCL world of 1")
@@ -2936,6 +3135,8 @@ def phase_lm_mesh(smi: str) -> float:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     ok.append(lm_mesh_virtual())
+    torch.cuda.empty_cache()
+    ok.append(lm_mesh_mixers())
     torch.cuda.empty_cache()
     counts = ops.launch_counts()
     log(f"[lm_mesh {elapsed():.1f}s] check (d) launch counts of the repo's kernels {json.dumps(counts)} "

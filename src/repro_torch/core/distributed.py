@@ -1072,12 +1072,12 @@ class DistIndex:
             _x_abs=float(payload.abs().max()) if payload.numel() else 0.0,
         )
 
-    def _stage(self, delta: float, cap_w: int, delta_bound: float | None):
-        key = (float(delta), int(cap_w), delta_bound)
+    def _stage(self, delta: float, cap_w: int, band: float, delta_bound: float | None):
+        key = (float(delta), int(cap_w), band, delta_bound)
         fn = self._stages.get(key)
         if fn is None:
             idx = self.index
-            qlo, qhi = idx.query_boxes(delta)
+            qlo, qhi = idx.query_boxes(band)
             dev = idx.data.device
             qplan = JoinPlan(
                 anchors=torch.as_tensor(idx.anchors, device=dev),
@@ -1110,10 +1110,18 @@ class DistIndex:
         M, rank = self.n_devices, dist.get_rank(self.group)
         q_loc, valid, ids, _ = _pad_shard_set(q_t, M, rank)
 
+        # Scale-aware fp band for the query boxes (``MetricIndex.query_band``)
+        # and, under prune="pivot", the pivot filter; the query magnitude is
+        # rounded up to a power of two so repeat batches share a stage.
+        q_abs = float(q_t.abs().max())
+        q_pow = float(2.0 ** np.ceil(np.log2(max(q_abs, 1e-9))))
+        band = kref.prune_delta(delta, idx.metric, max(self._x_abs, q_pow), int(idx.data.shape[1]))
+        delta_bound = band if self.prune == "pivot" else None
+
         # Exact-fit W capacity from a routing pass over the whole batch (the
         # stage's own map-assign path, so the counts cannot disagree),
         # rounded up to a power of two.
-        _, member = idx.route(q_t, delta)
+        _, member = idx.route(q_t, delta, band)
         per = q_loc.shape[0]
         mem_pad = np.zeros((per * M, idx.p), bool)
         mem_pad[: q_t.shape[0]] = member.cpu().numpy()
@@ -1123,17 +1131,7 @@ class DistIndex:
         exact = int(w_slot.max(initial=1))
         cap_w = 1 << max(exact - 1, 1).bit_length()
 
-        delta_bound = None
-        if self.prune == "pivot":
-            # Scale-aware fp band; the query magnitude is rounded up to a
-            # power of two so repeat batches share a stage.
-            q_abs = float(q_t.abs().max())
-            q_pow = float(2.0 ** np.ceil(np.log2(max(q_abs, 1e-9))))
-            delta_bound = kref.prune_delta(
-                delta, idx.metric, max(self._x_abs, q_pow), int(idx.data.shape[1])
-            )
-
-        out = self._stage(delta, cap_w, delta_bound)(self.fv, self.fv_ids, q_loc, valid, ids)
+        out = self._stage(delta, cap_w, band, delta_bound)(self.fv, self.fv_ids, q_loc, valid, ids)
         res = _gather_results(out, self.group, dev)
         assert res["overflow"] == 0, "serve W overflow"
         return _sorted_unique_pairs(res["pairs"])

@@ -224,20 +224,35 @@ class MetricIndex:
     def _dev(self, a: np.ndarray) -> Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def query_boxes(self, delta: float) -> tuple[np.ndarray, np.ndarray]:
-        """The δ-expanded whole boxes for a query radius — the expression the
-        build would have produced for that δ, bit for bit."""
+    def query_boxes(self, band: float) -> tuple[np.ndarray, np.ndarray]:
+        """The whole boxes expanded by ``band``. With ``band`` = δ this is the
+        expression the build would have produced for that δ, bit for bit
+        (the drift telemetry's ``observed_w`` counts under it); every routing
+        and membership test expands by :meth:`query_band` instead."""
         return (
-            (self.box_lo - np.float32(delta)).astype(np.float32),
-            (self.box_hi + np.float32(delta)).astype(np.float32),
+            (self.box_lo - np.float32(band)).astype(np.float32),
+            (self.box_hi + np.float32(band)).astype(np.float32),
         )
 
-    def route(self, q, delta: float) -> tuple[Tensor, Tensor]:
+    def query_band(self, delta: float, batch: Tensor | None = None) -> float:
+        """The band a routing or membership test expands the boxes by: the
+        pivot filter's guard band over the resident rows and ``batch``.
+
+        Lemma 4 holds for exact coordinates; computed ones are fp32 sums,
+        and the card's kernel sums in another order than the plain path, so
+        a δ-neighbour of a row on a box face can land a few ulps past a box
+        expanded by exactly δ (``partition.widen``: the join's same repair).
+        A wider box only adds candidates; the verify still tests the exact
+        distance against δ."""
+        return verify_lib.prune_band(delta, self.metric, self.data, batch)
+
+    def route(self, q, delta: float, band: float | None = None) -> tuple[Tensor, Tensor]:
         """Map a query batch and route it to its owning cells. Returns
         ``(q_coords (B, n), member (B, p))`` on the index's device, through
-        the same fused map-assign kernel (and fp algorithm) as the build."""
+        the same fused map-assign kernel (and fp algorithm) as the build.
+        The boxes expand by ``band`` (default :meth:`query_band`)."""
         q = _rows(q, self.device)
-        wlo, whi = self.query_boxes(delta)
+        wlo, whi = self.query_boxes(self.query_band(delta, q) if band is None else band)
         if q.shape[0] == 0:
             return (
                 torch.zeros((0, self.n_dims), dtype=torch.float32, device=self.device),
@@ -316,19 +331,19 @@ class MetricIndex:
 
     def self_pairs(self) -> np.ndarray:
         """Self-join pairs of the resident set through the index's own cached
-        artifacts (coords, cells, δ-expanded boxes)."""
-        member = _member_matrix(self.coords, *self.query_boxes(self.delta))
+        artifacts (coords, cells, band-expanded boxes)."""
+        member = _member_matrix(self.coords, *self.query_boxes(self.query_band(self.delta)))
         pairs, _ = verify_lib.verify_pairs(
             self.data, self.cells, member, self.delta, self.metric,
             config=self._engine_config(), coords=self.coords,
         )
         return pairs
 
-    def _delta_route(self, d: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    def _delta_route(self, d: Tensor, band: float) -> tuple[Tensor, Tensor, Tensor]:
         """Map an insertion delta through the same fused map-assign pass as
         the build: mapped coordinates, kernel cells (int32) and whole
-        membership under the CURRENT (pre-absorb) δ-expanded boxes."""
-        wlo, whi = self.query_boxes(self.delta)
+        membership under the CURRENT (pre-absorb) boxes expanded by ``band``."""
+        wlo, whi = self.query_boxes(band)
         if self.map_fused and kops.supports_kernel(self.metric):
             dm, cells, bits = kops.map_assign(
                 d, self._dev(self.anchors), self._dev(self.kernel_lo), self._dev(self.kernel_hi),
@@ -343,23 +358,28 @@ class MetricIndex:
         cells = partition.assign_kernel(pplan, dm).to(torch.int32)
         return dm, cells, _member_matrix(dm, wlo, whi)
 
-    def _delta_self_pairs(self, d: Tensor, d_coords: Tensor, d_cells: Tensor):
+    def _delta_self_pairs(self, d: Tensor, d_coords: Tensor, d_cells: Tensor, band: float):
         """ΔR×ΔR self-join (DELTA-LOCAL ids) under the member MBBs extended
-        with the delta's own coordinates. Returns (pairs_local, stats,
-        new_box_lo, new_box_hi, member_new)."""
+        with the delta's own coordinates and expanded by ``band``. Returns
+        (pairs_local, stats, new_box_lo, new_box_hi, member_new), where
+        ``member_new`` is the δ-expanded membership the drift telemetry
+        counts."""
         new_lo = self.box_lo.copy()
         new_hi = self.box_hi.copy()
         cells_np, coords_np = _np(d_cells), _np(d_coords)
         np.minimum.at(new_lo, cells_np, coords_np)
         np.maximum.at(new_hi, cells_np, coords_np)
-        qlo = (new_lo - np.float32(self.delta)).astype(np.float32)
-        qhi = (new_hi + np.float32(self.delta)).astype(np.float32)
-        member_new = _member_matrix(d_coords, qlo, qhi)
+
+        def member(r: float) -> Tensor:
+            lo = (new_lo - np.float32(r)).astype(np.float32)
+            hi = (new_hi + np.float32(r)).astype(np.float32)
+            return _member_matrix(d_coords, lo, hi)
+
         pairs, vstats = verify_lib.verify_pairs(
-            d, d_cells, member_new, self.delta, self.metric,
+            d, d_cells, member(band), self.delta, self.metric,
             config=self._engine_config(), coords=d_coords,
         )
-        return pairs, vstats, new_lo, new_hi, member_new
+        return pairs, vstats, new_lo, new_hi, member(self.delta)
 
     def _absorb(self, d, d_coords, d_cells, member_new, new_lo, new_hi) -> None:
         """Append the delta to the resident tensors and every derived cache.
@@ -459,7 +479,8 @@ class MetricIndex:
 
         n_old = self.n_rows
         t0 = time.perf_counter()
-        d_coords, d_cells, d_member_old = self._delta_route(d)
+        band = self.query_band(self.delta, d)
+        d_coords, d_cells, d_member_old = self._delta_route(d, band)
         stats.route_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -470,7 +491,9 @@ class MetricIndex:
             )
         else:
             cross = np.asarray(_cross_pairs_fn(d), np.int64).reshape(-1, 2)
-        self_local, sstats, new_lo, new_hi, member_new = self._delta_self_pairs(d, d_coords, d_cells)
+        self_local, sstats, new_lo, new_hi, member_new = self._delta_self_pairs(
+            d, d_coords, d_cells, band
+        )
         stats.self_verify = sstats
         stats.verify_s = time.perf_counter() - t0
         stats.n_cross_pairs = int(cross.shape[0])

@@ -24,6 +24,8 @@ process group of one mesh axis (``DeviceMesh.get_group(axis)``):
   gather_last    all-gather along the last dim forward; backward a
                  reduce-scatter (the ranks' uses are partial) or this
                  rank's block (they are the same)
+  scatter_last   reduce-scatter along the last dim forward (this rank's
+                 block of a sum of partials); backward an all-gather
   all_max        all-reduce MAX, a constant
   vocab_nll      the vocabulary-parallel cross entropy (one all-reduce
                  MAX and one SUM forward, none backward)
@@ -164,10 +166,14 @@ class _ScaleGrad(torch.autograd.Function):
         return grad * ctx.s, None
 
 
-def reduce_sum(x: Tensor, groups: list) -> Tensor:
+def reduce_sum(x: Tensor, groups: list, partial: bool = False) -> Tensor:
     """``x`` summed over ``groups`` (each group in turn); the gradient
-    passes through unchanged."""
-    return _ReduceSum.apply(x, list(groups))
+    passes through unchanged. ``partial``: each rank uses the sum in its
+    own way (its columns of a norm, its head of a projection), so each
+    term's gradient is the sum of the ranks' gradients of the sum (a
+    ``copy_to`` after the sum: one all-reduce backward)."""
+    y = _ReduceSum.apply(x, list(groups))
+    return copy_to(y, groups) if partial else y
 
 
 def copy_to(x: Tensor, groups: list) -> Tensor:
@@ -206,6 +212,29 @@ def gather_last(x: Tensor, group, partial: bool = True) -> Tensor:
     reduce-scatter); otherwise every rank computes the same objective from
     the result, and the block takes its own rank's gradient."""
     return _GatherLast.apply(x, group, partial)
+
+
+class _ScatterLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        g = dist.get_world_size(group)
+        blocks = x.reshape(*x.shape[:-1], g, x.shape[-1] // g).movedim(-2, 0)
+        return _reduce_scatter(blocks.reshape(g, -1).contiguous(), group).view(blocks.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = dist.get_world_size(ctx.group)
+        rows = _all_gather_rows(grad.contiguous(), ctx.group)  # (g, numel): rank r's block in row r
+        return rows.view(g, *grad.shape).movedim(0, -2).reshape(*grad.shape[:-1], g * grad.shape[-1]), None
+
+
+def scatter_last(x: Tensor, group) -> Tensor:
+    """This rank's block along the last dim of the sum over ``group`` of
+    every rank's ``x`` (a partial sum; one reduce-scatter). Backward the
+    block's gradient gathered whole (one all-gather): each rank's term
+    takes the gradient of the whole sum."""
+    return _ScatterLast.apply(x, group)
 
 
 def all_max(x: Tensor, groups: list) -> Tensor:
@@ -251,6 +280,15 @@ class Split:
             return w
         lo, hi = self.span(full)
         return w.narrow(dim, lo, hi - lo)
+
+    def whole(self, w: Tensor, full: int) -> Tensor:
+        """A leaf whole along its last dim (``full`` long) for a use in this
+        rank's share: its block gathered along "model" where it is held so
+        (``gather_last``, partial), else the leaf itself with its gradient
+        summed over "model" (``copy_to``)."""
+        if w.shape[-1] == full:
+            return copy_to(w, self.groups)
+        return gather_last(w, self.group, partial=True)
 
 
 def model_split() -> Split | None:

@@ -38,10 +38,21 @@ def rmsnorm_defs(d: int) -> dict:
     return {"scale": pdef((d,), (None,), init="ones")}
 
 
-def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
+def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6, sp=None) -> Tensor:
+    """RMSNorm over the last dim. ``sp`` (a ``collectives.Split`` that
+    shards that dim): ``x`` holds this rank's columns of it, the mean of
+    squares is the ranks' partial means (each weighted by its share of the
+    dim) summed over "model" (one all-reduce; its gradient summed back,
+    each rank normalising its own columns), and the scale is its columns
+    of the whole leaf. On one rank the whole norm, bit for bit."""
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    scale = params["scale"]
+    if sp is not None:
+        full = scale.shape[-1]
+        var = collectives.reduce_sum(var * (x.shape[-1] / full), sp.groups, partial=True)
+        scale = sp.block(collectives.copy_to(scale, sp.groups), 0, full)
+    y = xf * torch.rsqrt(var + eps) * scale.float()
     return y.to(x.dtype)
 
 
@@ -106,6 +117,23 @@ def mlp(params: dict, x: Tensor, kind: str = "swiglu", d_ff: int | None = None) 
         return mlp_share(params, x, kind)
     y = mlp_share(params, collectives.copy_to(x, sp.groups), kind, sp, d_ff)
     return row_bias(params["down"], collectives.reduce_sum(y, sp.groups))
+
+
+def gathered_linear(x: Tensor, w: Tensor, b: Tensor | None, full: int, sp) -> Tensor:
+    """``x @ w (+ b)`` whole along its ``full`` output columns inside this
+    rank's share (``sp``): projected on the rank's columns and gathered
+    along "model" (``collectives.gather_last``, partial) where "model"
+    splits them, else on the whole leaf, its gradient summed over "model".
+    For a projection whose column blocks do not line up with what the
+    rank computes next (Mamba2's z | x | B | C | dt, sLSTM's gates where
+    the heads do not divide "model")."""
+    if not sp.splits(full):
+        w = collectives.copy_to(w, sp.groups)
+        b = None if b is None else collectives.copy_to(b, sp.groups)
+    y = x @ sp.block(w, w.dim() - 1, full).to(x.dtype)
+    if b is not None:
+        y = y + sp.block(b, 0, full).to(x.dtype)
+    return collectives.gather_last(y, sp.group) if sp.splits(full) else y
 
 
 def row_bias(params: dict, y: Tensor) -> Tensor:

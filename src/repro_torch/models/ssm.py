@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import base, layers
+from repro_torch.models import base, collectives, layers
 from repro_torch.models.base import pdef
 
 Tensor = torch.Tensor
@@ -113,16 +113,6 @@ def mamba2_defs(cfg) -> dict:
     }
 
 
-def _split_inproj(cfg, zxbcdt: Tensor):
-    d_in = cfg.ssm_expand * cfg.d_model
-    H = d_in // cfg.ssm_head_dim
-    N = cfg.ssm_state
-    z = zxbcdt[..., :d_in]
-    xbc = zxbcdt[..., d_in : 2 * d_in + 2 * N]
-    dt = zxbcdt[..., 2 * d_in + 2 * N :]  # (..., H)
-    return z, xbc, dt, d_in, H, N
-
-
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor, state: Tensor | None):
     """Depthwise causal conv over (B, S, C). state: (B, W-1, C) history,
     read in ``xbc``'s dtype. Returns (silu(out), the new history in
@@ -139,6 +129,36 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor, state: Tensor | None):
     return F.silu(out), new_state
 
 
+def mixer_split(cfg, sp):
+    """The split a Mamba2 or xLSTM mixer computes its share under: ``sp``
+    when "model" divides the mixer's inner width d_in (the rows of
+    ``out_proj`` / ``down``), else None: the mixer is computed whole on
+    every rank, its leaves gathered whole along "model"."""
+    return sp if sp is not None and sp.splits(cfg.ssm_expand * cfg.d_model) else None
+
+
+def inner_span(d_in: int, dh: int, sp) -> tuple[int, int, int, int]:
+    """(lo, hi, h0, h1): this rank's columns [lo, hi) of a mixer's inner
+    width (its rows of the output projection) and the heads [h0, h1) of
+    width ``dh`` they touch; every column and head without a split."""
+    if sp is None:
+        return 0, d_in, 0, d_in // dh
+    lo, hi = sp.span(d_in)
+    return lo, hi, lo // dh, -(-hi // dh)
+
+
+def head_rows(w: Tensor, H: int, h0: int, h1: int, sp) -> Tensor:
+    """Rows [h0, h1) of a per-head leaf (leading dim H) for this rank's
+    share: its block where "model" splits the heads (held so, or cut from
+    the whole leaf), else those rows of the whole leaf, its gradient
+    summed over "model"."""
+    if sp is None:
+        return w
+    if sp.splits(H):
+        return sp.block(w, 0, H)
+    return collectives.copy_to(w, sp.groups)[h0:h1]
+
+
 def mamba2_block(
     params: dict,
     x: Tensor,  # (B, S, d)
@@ -148,25 +168,74 @@ def mamba2_block(
 ) -> tuple[Tensor, dict]:
     """Mamba2 sub-block (no residual). Decode when S == 1 and state given.
     ``A_log``, ``D`` and ``dt_bias`` are read in fp32, as the reference
-    reads them."""
+    reads them. Under a split that shards d_in (``mixer_split``) each rank
+    computes its share (``mamba2_share``) and the partial outputs are
+    summed over "model"; ``state`` is then the rank's share of it
+    (``mamba2_state_init``)."""
+    sp = mixer_split(cfg, collectives.model_split())
+    if sp is None:
+        return mamba2_share(params, x, cfg, state=state)
+    y, st = mamba2_share(params, collectives.copy_to(x, sp.groups), cfg, sp, state=state)
+    return collectives.reduce_sum(y, sp.groups), st
+
+
+def mamba2_share(params: dict, x: Tensor, cfg, sp=None, *, state: dict | None = None) -> tuple[Tensor, dict]:
+    """This rank's share of the Mamba2 block (``sp``: a split of d_in), the
+    partial output before the sum over "model"; without ``sp`` the whole
+    block. Rank r of m owns the columns [lo, hi) of d_in (its rows of
+    ``out_proj``) and computes the heads [h0, h1) they touch: its own
+    heads when m divides H; where it does not (heads straddling two
+    ranks) the straddled heads on both, each rank using only its columns.
+
+    ``in_proj``'s column blocks do not line up with its z | x | B | C | dt
+    segments, so the rank projects on its columns and gathers the
+    projection whole along "model" (``layers.gathered_linear``), then
+    takes its heads' z, x and dt and all of B and C (every head reads
+    them). ``conv_w``/``conv_b`` are gathered whole (their channel blocks
+    do not line up with the heads either) and the conv runs on the rank's
+    x channels and on B and C; the SSD on its heads (``A_log``, ``D``,
+    ``dt_bias``: its rows); the gated RMSNorm over the whole d_in from
+    the ranks' partial means (``layers.rmsnorm`` with ``sp``); ``out_proj``
+    on its rows. ``state``: {"conv": (B, W-1, x channels of the heads +
+    2N), "ssd": (B, heads, N, P)}."""
     B, S, d = x.shape
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
-    z, xbc, dt, d_in, H, N = _split_inproj(cfg, zxbcdt)
-    P = cfg.ssm_head_dim
+    d_in = cfg.ssm_expand * cfg.d_model
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = d_in // P
+    F_all, C_all = 2 * d_in + 2 * N + H, d_in + 2 * N
+    lo, hi, h0, h1 = inner_span(d_in, P, sp)
+    c0, c1 = h0 * P, h1 * P
+    nh = h1 - h0
+    if sp is None:
+        zxbcdt = x @ params["in_proj"].to(x.dtype)
+        conv_w, conv_b = params["conv_w"], params["conv_b"]
+    else:
+        zxbcdt = layers.gathered_linear(x, params["in_proj"], None, F_all, sp)
+        conv_w, conv_b = sp.whole(params["conv_w"], C_all), sp.whole(params["conv_b"], C_all)
+    z = zxbcdt[..., c0:c1]
+    dt = zxbcdt[..., 2 * d_in + 2 * N + h0 : 2 * d_in + 2 * N + h1]  # (..., nh)
+    if nh == H:
+        xbc = zxbcdt[..., d_in : 2 * d_in + 2 * N]
+    else:  # the heads' x channels, then B and C
+        def chans(t: Tensor, off: int) -> Tensor:
+            return torch.cat([t[..., off + c0 : off + c1], t[..., off + d_in : off + C_all]], -1)
+
+        xbc = chans(zxbcdt, d_in)
+        conv_w, conv_b = chans(conv_w, 0), chans(conv_b, 0)
 
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_state)
-    xs = xbc[..., :d_in].reshape(B, S, H, P)
-    Bmat = xbc[..., d_in : d_in + N]  # (B, S, N) shared across heads (MVA)
-    Cmat = xbc[..., d_in + N :]  # (B, S, N)
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
+    xs = xbc[..., : nh * P].reshape(B, S, nh, P)
+    Bmat = xbc[..., nh * P : nh * P + N]  # (B, S, N) shared across heads (MVA)
+    Cmat = xbc[..., nh * P + N :]  # (B, S, N)
 
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, S, H)
-    a = -torch.exp(params["A_log"].float())  # (H,) < 0
-    log_decay = dt * a  # (B, S, H) <= 0
+    dt = F.softplus(dt.float() + head_rows(params["dt_bias"], H, h0, h1, sp))  # (B, S, nh)
+    a = -torch.exp(head_rows(params["A_log"], H, h0, h1, sp).float())  # (nh,) < 0
+    log_decay = dt * a  # (B, S, nh) <= 0
     xbar = xs.float() * dt[..., None]
 
-    kq_k = Bmat[:, :, None, :].expand(B, S, H, N)
-    kq_q = Cmat[:, :, None, :].expand(B, S, H, N)
+    kq_k = Bmat[:, :, None, :].expand(B, S, nh, N)
+    kq_q = Cmat[:, :, None, :].expand(B, S, nh, N)
 
     if state is None:
         y, ssd_state = chunked_linear_recurrence(kq_q, kq_k, xbar, log_decay, chunk=128)
@@ -177,27 +246,31 @@ def mamba2_block(
         y = yv[:, None]
     new_state = {"conv": new_conv, "ssd": ssd_state}
 
-    y = y + params["D"].float()[None, None, :, None] * xs.float()
-    y = y.reshape(B, S, d_in).to(x.dtype)
-    y = layers.rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["out_proj"].to(x.dtype), new_state
+    y = y + head_rows(params["D"], H, h0, h1, sp).float()[None, None, :, None] * xs.float()
+    y = y.reshape(B, S, nh * P).to(x.dtype) * F.silu(z)
+    if sp is None:
+        return layers.rmsnorm(params["norm"], y) @ params["out_proj"].to(x.dtype), new_state
+    y = layers.rmsnorm(params["norm"], y[..., lo - c0 : hi - c0], sp=sp)
+    return y @ sp.block(params["out_proj"], 0, d_in).to(x.dtype), new_state
 
 
-def mamba2_state_init(cfg, batch: int, device: torch.device | str = "cuda") -> dict:
+def mamba2_state_init(cfg, batch: int, device: torch.device | str = "cuda", sp=None) -> dict:
     """{"conv": (batch, W-1, C) bf16 history, "ssd": (batch, H, N, P) fp32}:
     the reference's layout and dtypes (its step returns the history in the
-    activation dtype)."""
+    activation dtype). ``sp``: a rank's share under a split
+    (``mamba2_share``): the x channels of its heads plus B and C, and
+    the SSD state of its heads."""
     d_in = cfg.ssm_expand * cfg.d_model
-    H = d_in // cfg.ssm_head_dim
-    N = cfg.ssm_state
-    conv_dim = d_in + 2 * N
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    _, _, h0, h1 = inner_span(d_in, P, mixer_split(cfg, sp))
     return {
         "conv": base.shard_act(
-            torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=torch.bfloat16, device=device),
+            torch.zeros((batch, cfg.conv_width - 1, (h1 - h0) * P + 2 * N), dtype=torch.bfloat16,
+                        device=device),
             ("act_batch", None, "act_model"),
         ),
         "ssd": base.shard_act(
-            torch.zeros((batch, H, N, cfg.ssm_head_dim), dtype=torch.float32, device=device),
+            torch.zeros((batch, h1 - h0, N, P), dtype=torch.float32, device=device),
             ("act_batch", "act_model", None, None),
         ),
     }

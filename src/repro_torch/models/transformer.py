@@ -330,10 +330,9 @@ def _zip_map(fn, a: PyTree, b: PyTree) -> PyTree:
     return fn(a, b)
 
 
-# The mixers that keep gathering whole along "model" under "tp": their
-# one FFN column dim concatenates segments (Mamba2's z, x, B, C, dt), so a
-# column block is not one segment (ROADMAP §3).
-WHOLE_MIXERS = frozenset({"mamba", "mlstm", "slstm"})
+# The Mamba2 and xLSTM mixers' blocks: split along "model" where it
+# divides their inner width (``ssm.mixer_split``), else gathered whole.
+MIXERS = frozenset({"mamba", "mlstm", "slstm"})
 
 
 class ShardedTransformer(Transformer):
@@ -359,11 +358,14 @@ class ShardedTransformer(Transformer):
     the rules shard over "model" stays this rank's block, and the blocks
     compute their share (``collectives.model_split``): attention by heads,
     the MLPs and shared experts by column and row, routed experts by
-    expert (or by column where "model" does not divide them), embedding,
-    logits and cross entropy by vocabulary row; one all-reduce over
-    "model" completes each. The Mamba2 and xLSTM mixers (``WHOLE_MIXERS``)
-    are gathered whole along "model" and computed whole. Under "fsdp" and
-    "fsdp_sp", where "model" carries batch, every leaf is gathered whole.
+    expert (or by column where "model" does not divide them), the Mamba2
+    and xLSTM mixers by head and inner column (``ssm.mamba2_share``,
+    ``xlstm.mlstm_share``, ``xlstm.slstm_share``), embedding, logits and
+    cross entropy by vocabulary row; one all-reduce over "model"
+    completes each. A mixer whose inner width "model" does not divide
+    (``ssm.mixer_split``) is gathered whole and computed whole. Under
+    "fsdp" and "fsdp_sp", where "model" carries batch, every leaf is
+    gathered whole.
     The backward takes each gradient straight to this rank's block, summed
     over the batch axes (``collectives.LayerGather``: reduce-scatters along
     batch axes that shard a leaf), as soon as its layer's backward is done.
@@ -371,9 +373,10 @@ class ShardedTransformer(Transformer):
     Under "tp" the full-sequence forward returns this rank's vocabulary
     columns of the logits (``logits_split``), which the mesh loss takes as
     they are (``collectives.vocab_nll``); the serving entry points
-    (``last_only``, ``decode_step``) gather them whole, and the KV caches
+    (``last_only``, ``decode_step``) gather them whole, the KV caches
     of ``init_state`` hold the rank's kv heads where the attention is split
-    by heads (``kv_split``). ``profile`` picks the parameter rules, the
+    by heads (``kv_split``), and the recurrent states the rank's share of
+    each mixer (``init_state``). ``profile`` picks the parameter rules, the
     activation rules and the batch axes (``base.rules_for_profile``: "tp",
     "fsdp" or "fsdp_sp")."""
 
@@ -397,11 +400,12 @@ class ShardedTransformer(Transformer):
 
     def _keep(self, placements: dict) -> dict:
         """{leaf path: ("model",)} for the leaves kept as this rank's block
-        along "model": under the split, every leaf outside the mixers."""
+        along "model": under the split, every leaf but those of a mixer
+        that is computed whole (``ssm.mixer_split``)."""
         if not self.split:
             return {}
-        paths = [p for p, _ in _paths(placements)]
-        return {p: ("model",) for p in paths if not WHOLE_MIXERS & set(p)}
+        whole = frozenset() if ssm.mixer_split(self.cfg, self.model_axis) else MIXERS
+        return {p: ("model",) for p, _ in _paths(placements) if not whole & set(p)}
 
     @property
     def model_axis(self):
@@ -433,7 +437,7 @@ class ShardedTransformer(Transformer):
     def gather_layer(self, local: dict, key: str) -> dict:
         """One layer of stack ``key`` gathered from this rank's blocks: whole
         along the batch axes, and under the split still this rank's block
-        along "model" outside the mixers (``_keep``)."""
+        along "model" (``_keep``)."""
         gather = self._layer_gathers.get(key)
         if gather is None:
             depth = self._depth[key]
@@ -452,10 +456,13 @@ class ShardedTransformer(Transformer):
 
     def init_state(self, batch: int, max_len: int) -> PyTree:
         """This rank's decode state for ``batch`` rows: its kv heads in the
-        KV caches where the attention is split by heads (``kv_split``)."""
+        KV caches where the attention is split by heads (``kv_split``), and
+        under the split its share of each recurrent state (``init_state``'s
+        ``split``)."""
         hs = self.kv_split
         return init_state(self.cfg, batch, max_len, device=self.tree["final_norm"]["scale"].device,
-                          kv_heads=None if hs is None else hs.cache_heads(self.cfg))
+                          kv_heads=None if hs is None else hs.cache_heads(self.cfg),
+                          split=self.model_axis)
 
     def shard_tree(self, tree: PyTree) -> PyTree:
         """This rank's shards of a full tree in the parameters' layout."""
@@ -642,7 +649,8 @@ def _stacked(x: Tensor, *lead: int) -> Tensor:
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int,
-               device: torch.device | str = "cuda", kv_heads: int | None = None) -> PyTree:
+               device: torch.device | str = "cuda", kv_heads: int | None = None,
+               split: collectives.Split | None = None) -> PyTree:
     """Decode state, the reference's pytree with its shapes and dtypes:
       dense / vlm  {"kv": {"k", "v"}} (n_layers, batch, max_len, n_kv_heads,
                    head_dim) bf16
@@ -652,7 +660,19 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int,
       ssm          {"mlstm": (groups, per_m, batch, H, dh, dh+1) fp32,
                    "slstm": (c, h), each (groups, batch, H, dh) fp32}
     ``kv_heads``: the kv heads each KV cache holds (a rank's share under a
-    split, ``ShardedTransformer.init_state``; default every one)."""
+    split, ``ShardedTransformer.init_state``; default every one).
+    ``split``: the rank's ``collectives.Split`` along "model", whose share
+    of each recurrent state it holds where the mixers split
+    (``ssm.mixer_split``); rank r of m owns the columns [r·d_in/m,
+    (r+1)·d_in/m) of d_in and the heads [h0, h1) they touch:
+      Mamba2  "conv" (..., W-1, (h1-h0)·P + 2N): its heads' x channels,
+              then B and C (every head reads them); "ssd" (..., h1-h0,
+              N, P)
+      mLSTM   (..., h1-h0, dh, dv+1): its heads' matrix memories, dv their
+              value columns (dh, or its columns inside one head, m / H of
+              them) plus the normalizer
+      sLSTM   (c, h), each (..., H/m, dh) where m divides H, else
+              (..., H, dh): the recurrence whole on every rank."""
     _check_family(cfg)
     if cfg.family in ("dense", "vlm", "moe"):
         cache = attention.init_kv_cache(cfg, batch, max_len, device=device, kv_heads=kv_heads)
@@ -663,14 +683,14 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int,
         return out
     if cfg.family == "hybrid":
         groups, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
-        ms = ssm.mamba2_state_init(cfg, batch, device=device)
+        ms = ssm.mamba2_state_init(cfg, batch, device=device, sp=split)
         kv = attention.init_kv_cache(cfg, batch, max_len, device=device, kv_heads=kv_heads)
         return {"mamba": {k: _stacked(x, groups, per) for k, x in ms.items()},
                 "kv": {k: _stacked(x, groups) for k, x in kv.items()}}
     if cfg.family == "ssm":
         groups, per_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
-        m = xlstm.mlstm_state_init(cfg, batch, device=device)
-        s = xlstm.slstm_state_init(cfg, batch, device=device)
+        m = xlstm.mlstm_state_init(cfg, batch, device=device, sp=split)
+        s = xlstm.slstm_state_init(cfg, batch, device=device, sp=split)
         return {"mlstm": _stacked(m, groups, per_m), "slstm": tuple(_stacked(x, groups) for x in s)}
     raise ValueError(f"no decode state for family {cfg.family!r}")
 

@@ -217,7 +217,7 @@ def tp_split_job(spec: dict) -> dict:
 
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
     out = {}
-    for arch in (*spec["archs"], *spec["mixers"]):
+    for arch in spec["archs"]:
         cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
         pipe = TokenPipeline(cfg, PipelineConfig(seed=0, seq_len=spec["seq"], global_batch=spec["batch"]))
         full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
@@ -331,13 +331,25 @@ def vocab_ce_job(spec: dict) -> dict:
 
 def tp_decode_job(spec: dict) -> dict:
     """Greedy decoding of reduced qwen1.5-0.5b under "tp" on a (2, 2) mesh
+    (``_tp_decode``)."""
+    return _tp_decode("qwen1.5-0.5b", spec)
+
+
+def tp_decode_mixers_job(spec: dict) -> dict:
+    """``_tp_decode`` of each of the spec's archs (the Mamba2 and xLSTM
+    families: each rank holds its share of every recurrent state)."""
+    return {arch: _tp_decode(arch, dict(spec, prompts=spec["prompts"][arch])) for arch in spec["archs"]}
+
+
+def _tp_decode(arch: str, spec: dict) -> dict:
+    """Greedy decoding of reduced ``arch`` under "tp" on a (2, 2) mesh
     from a seeded draw: each "data" rank's rows of the spec's prompts fed
     token by token through ``ShardedTransformer.decode_step``
-    (``make_serve_step``), then ``n_gen`` greedy tokens; the ids, the KV
-    caches' shapes, and the prefill's last-position logits
+    (``make_serve_step``), then ``n_gen`` greedy tokens; the ids, the
+    decode state's shapes, and the prefill's last-position logits
     (``make_prefill_step``, gathered whole along "model")."""
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
-    cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), act_dtype="float32")
+    cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
     full = train_lib.build_model(cfg, seed=spec["seed"], device="cpu").param_tree()
     model = transformer.ShardedTransformer(cfg, full, mesh, profile="tp")
     d, _ = mesh.get_coordinate()
@@ -357,6 +369,52 @@ def tp_decode_job(spec: dict) -> dict:
             ids.append(nxt)
     return {"rows": (d * rows, (d + 1) * rows), "ids": torch.cat(ids, 1).numpy(), "cache_shapes": shapes,
             "prefill_last": _np(last)}
+
+
+def _mixer_blocks(kind: str):
+    """(defs, block, state init) of a mixer kind."""
+    from repro_torch.models import ssm, xlstm
+
+    return {"mamba": (ssm.mamba2_defs, ssm.mamba2_block, ssm.mamba2_state_init),
+            "mlstm": (xlstm.mlstm_defs, xlstm.mlstm_block, xlstm.mlstm_state_init),
+            "slstm": (xlstm.slstm_defs, xlstm.slstm_block, xlstm.slstm_state_init)}[kind]
+
+
+def mixer_layouts_job(spec: dict) -> dict:
+    """Each of the spec's mixer blocks under the split on a (2, 2) mesh,
+    its leaves held as the rules place them along "model" (this rank's
+    block where "model" divides the dim, else whole; "embed" left whole)
+    and the whole batch on every rank: the output, the gradients of
+    sum(y · cot) for x and every leaf, the dim along which each leaf is
+    split over "model" (None: whole), 4 decode steps from the rank's share
+    of the state (``*_state_init`` with the split) and that state's
+    shapes."""
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = dict(base.LOGICAL_RULES, embed=None)
+    out = {}
+    for name, case in spec["cases"].items():
+        cfg = dataclasses.replace(configs.get_reduced(case["arch"]), **case["cfg"])
+        defs, block, init = _mixer_blocks(case["kind"])
+        placements = base.make_shardings(defs(cfg), mesh, rules)
+        params = transformer._zip_map(
+            lambda a, pl: collectives.shard_local(torch.tensor(a), pl, mesh).clone().requires_grad_(),
+            case["params"], placements)
+        x = torch.tensor(case["x"], requires_grad=True)
+        with base.use_mesh(mesh, base.ACT_RULES, split=True):
+            y, _ = block(params, x, cfg)
+            (y * torch.as_tensor(case["cot"])).sum().backward()
+            state = init(cfg, x.shape[0], device="cpu", sp=collectives.Split.of(mesh))
+            shapes = [tuple(t.shape) for t in base.tree_leaves(state)]
+            with torch.no_grad():
+                dec = []
+                for i in range(4):
+                    yi, state = block(params, x[:, i : i + 1].detach(), cfg, state=state)
+                    dec.append(yi)
+        out[name] = {"y": _np(y), "x_grad": _np(x.grad), "decode": _np(torch.cat(dec, 1)), "state": shapes,
+                     "grads": {"/".join(p): _np(t.grad) for p, t in transformer._paths(params)},
+                     "split_dim": {"/".join(p): (pl[1].dim if pl[1].is_shard() else None)
+                                   for p, pl in transformer._paths(placements)}}
+    return out
 
 
 def ep_job(spec: dict) -> dict:
@@ -464,7 +522,8 @@ def launcher_job(spec: dict) -> dict:
 
 JOBS = {"dp_tp": dp_tp_job, "moe_remat": moe_remat_job, "moe_aux": moe_aux_job, "grads": grads_job,
         "tp_split": tp_split_job, "moe_split": moe_split_job, "attn_modes": attn_modes_job,
-        "vocab_ce": vocab_ce_job, "tp_decode": tp_decode_job, "ep": ep_job,
+        "vocab_ce": vocab_ce_job, "tp_decode": tp_decode_job, "tp_decode_mixers": tp_decode_mixers_job,
+        "mixer_layouts": mixer_layouts_job, "ep": ep_job,
         "batch": batch_job, "shard_act": shard_act_job, "guard": guard_job, "launcher": launcher_job}
 
 

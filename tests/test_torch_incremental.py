@@ -3,7 +3,9 @@ against the JAX package's and against its own one-shot join.
 
 The same insertion batches go into a reference-built index loaded in both
 packages (one control plane, since torch cannot reproduce ``jax.random``
-streams): the new pairs and the ``StreamStats`` must be equal. The port's
+streams): the new pairs and the ``StreamStats`` must be equal (the
+engine's counters under the reference's δ-expanded boxes; the port's own
+guard-band boxes only add candidates). The port's
 ``join_incremental`` under one, two and k-way splits must be byte-identical
 to the port's own ``join`` over the concatenated rows. δ sits mid-way in a
 gap of all pair distances, so no pair is within fp reach of it and pair
@@ -56,26 +58,41 @@ def _split(x, cuts):
 
 
 @pytest.mark.parametrize("metric,prune", [("l1", "pivot"), ("l2", "window"), ("linf", "none")])
-def test_insert_batches_match_reference(metric, prune, tmp_path):
+def test_insert_batches_match_reference(metric, prune, tmp_path, monkeypatch):
+    """The port's inserts against the reference's. The port routes and
+    tests membership under boxes expanded by the pivot filter's guard band
+    (``MetricIndex.query_band``), which only adds candidates: pairs, the
+    stream stats, the hits and ``observed_w`` equal the reference's, and
+    it verifies at least the reference's candidates. Under the reference's
+    own boxes (the band pinned to δ) every engine counter is the
+    reference's, bit for bit."""
     full = _rows(1, 90)
     delta = _gap_delta(full, metric)
     ref_idx = jindex.build_index(full[:40], _cfg(jspjoin, metric, delta, backend="numpy", prune=prune))
     path = ref_idx.save(str(tmp_path / "i"))
     theirs = jindex.MetricIndex.load(path)
+    batches = _split(full, [40, 55, 70])[1:]
+    want = [theirs.insert_batch(b) for b in batches]
     ours = index.MetricIndex.load(path, device="cpu")
-    for batch in _split(full, [40, 55, 70])[1:]:
-        wp, ws = theirs.insert_batch(batch)
-        gp, gs = ours.insert_batch(torch.as_tensor(batch))
-        assert gp.dtype == np.int64 and gp.tobytes() == wp.tobytes()
-        for k in STATS:
-            assert getattr(gs, k) == getattr(ws, k), k
-        assert np.isclose(gs.balance_std_before, ws.balance_std_before)
-        assert np.isclose(gs.balance_std_after, ws.balance_std_after)
+    got = [ours.insert_batch(torch.as_tensor(b)) for b in batches]
+    with monkeypatch.context() as m:
+        m.setattr(index.MetricIndex, "query_band", lambda self, d, batch=None: float(d))
+        at_delta = index.MetricIndex.load(path, device="cpu")
+        got_delta = [at_delta.insert_batch(torch.as_tensor(b)) for b in batches]
+    for (gp, gs), (dp, ds), (wp, ws) in zip(got, got_delta, want):
+        assert gp.dtype == np.int64 and gp.tobytes() == wp.tobytes() == dp.tobytes()
+        for st in (gs, ds):
+            for k in STATS:
+                assert getattr(st, k) == getattr(ws, k), k
+            assert np.isclose(st.balance_std_before, ws.balance_std_before)
+            assert np.isclose(st.balance_std_after, ws.balance_std_after)
         for part in ("cross_verify", "self_verify"):
             for k in VSTATS:
-                assert getattr(getattr(gs, part), k) == getattr(getattr(ws, part), k), (part, k)
-    assert ours.n_batches == theirs.n_batches == 3
-    assert ours.observed_w.tobytes() == theirs.observed_w.tobytes()
+                assert getattr(getattr(ds, part), k) == getattr(getattr(ws, part), k), (part, k)
+            assert getattr(gs, part).n_hits == getattr(ws, part).n_hits, part
+            assert getattr(gs, part).n_verifications >= getattr(ws, part).n_verifications, part
+    assert ours.n_batches == at_delta.n_batches == theirs.n_batches == 3
+    assert ours.observed_w.tobytes() == at_delta.observed_w.tobytes() == theirs.observed_w.tobytes()
     truth = spjoin.brute_force_pairs(full, delta, metric, device="cpu")
     assert ours.self_pairs().tobytes() == truth.tobytes()
 

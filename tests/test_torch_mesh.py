@@ -71,13 +71,21 @@ the JAX side is computed here.
   near cancellation); the step's collectives equal the checker's restated budgets;
   each rank's ``FlopCounterMode`` count of the split matmuls is half the
   whole step's (the router's and the routed experts' products, expert
-  parallel in both, counted out). Reduced zamba2-2.7b and xlstm-1.3b,
-  whose Mamba2 and xLSTM mixers stay gathered whole along "model", are
-  held to the same loss bound and, zamba2, the same gradient bound;
-  xlstm's gradient to XLSTM_GRAD_REL (1e-4; measured 3.3e-5): its
-  recurrences amplify rounding, so that on one process a relative
-  perturbation of 1e-7 of the logits alone moves its gradient by 1.1e-5
-  of its largest element (qwen's by 4.1e-7).
+  parallel in both, and the mLSTM's ``x @ w_if``, counted out). Reduced
+  zamba2-2.7b and xlstm-1.3b split their Mamba2 and xLSTM mixers by head
+  and inner column: the same loss bound; their gradients to
+  MIXER_GRAD_REL (zamba2 2e-5, measured 3.3e-6; xlstm 1e-2, measured
+  3.8e-3): their recurrences amplify rounding, so that on one process a
+  relative perturbation of 1e-7 of every weight moves the gradient by
+  9.6e-6 (zamba2) and 2.8e-3 (xlstm; the mLSTM's normaliser near 0) of
+  its largest element (qwen's by 1.6e-6; examples/lm_grad_noise_torch.py).
+* The mixer blocks under the split on 2 "model" ranks, their leaves held
+  as the rules place them: reduced zamba2's Mamba2 and xlstm's mLSTM and
+  sLSTM (heads that divide "model"), and Mamba2 with 3 heads, the mLSTM
+  with 1 and 3 and the sLSTM with 1 (heads that do not). Output, 4 decode
+  steps from the rank's share of the state, x's and every leaf's
+  gradient against the whole block within MIXER_REL (1e-5; the mLSTM
+  XLSTM_GRAD_REL, measured 4.4e-5), the state's shapes the rank's share.
 * ``moe_block`` under the split where "model" does not divide the
   experts (3 experts on the (2, 2) mesh: no expert parallelism, each
   expert's and the shared experts' FFN split by column and row, the
@@ -107,7 +115,9 @@ the JAX side is computed here.
   greedy tokens): the ids equal the single process's, each rank's KV
   caches hold KV / 2 heads, and the prefill's last-position logits,
   gathered whole along "model", the single process's within rtol = atol =
-  1e-5.
+  1e-5. The same for reduced zamba2 and xlstm, each rank holding its
+  share of every recurrent state (logits within MIXER_LOGITS_TOL, 1e-4:
+  xlstm's measured 1.7e-5).
 * Each rank's parameter and ``mu`` shapes are its shards under
   ``make_shardings``, and together the ranks hold each leaf once per
   replica.
@@ -162,13 +172,30 @@ MOE_AUX = dict(arch="deepseek-moe-16b", cfg=dict(act_dtype="float32"), seed=1, b
 GRADS = dict(cells=(("qwen1.5-0.5b", "tp"), ("qwen1.5-0.5b", "fsdp"), ("deepseek-moe-16b", "tp")), seed=1,
              batch=8, seq=32, aux_weight=0.01)
 GRAD_REL = 1e-6
-TP_SPLIT = dict(archs=("qwen1.5-0.5b", "deepseek-moe-16b", "granite-34b", "llama4-scout-17b-a16e"),
-                mixers=("zamba2-2.7b", "xlstm-1.3b"), seed=1, batch=8, seq=32, aux_weight=0.01)
+TP_SPLIT = dict(archs=("qwen1.5-0.5b", "deepseek-moe-16b", "granite-34b", "llama4-scout-17b-a16e",
+                       "zamba2-2.7b", "xlstm-1.3b"), seed=1, batch=8, seq=32, aux_weight=0.01)
 TP_REL = 1e-6
 TP_GRAD_REL = 2e-6
 XLSTM_GRAD_REL = 1e-4
 VOCAB_GRAD_REL = 1e-6
 TP_DECODE = dict(seed=1, n_prompt=8, n_gen=8, batch=4)
+TP_DECODE_MIXERS = ("zamba2-2.7b", "xlstm-1.3b")
+# Mixer blocks on 2 "model" ranks: (arch, block, config changes); the reduced configs' heads
+# divide "model", the others' do not
+MIXER_LAYOUTS = {"mamba2_8_heads": ("zamba2-2.7b", "mamba", {}),
+                 "mlstm_4_heads": ("xlstm-1.3b", "mlstm", {}),
+                 "slstm_4_heads": ("xlstm-1.3b", "slstm", {}),
+                 "mamba2_3_heads": ("zamba2-2.7b", "mamba", dict(d_model=48, ssm_head_dim=32)),
+                 "mlstm_1_head": ("xlstm-1.3b", "mlstm", dict(n_heads=1)),
+                 "slstm_1_head": ("xlstm-1.3b", "slstm", dict(n_heads=1)),
+                 "mlstm_3_heads": ("xlstm-1.3b", "mlstm", dict(d_model=48, n_heads=3))}
+MIXER_REL = 1e-5
+# The whole-step gradient bars of the mixer archs, a few times their own rounding response: on
+# one process a relative perturbation of 1e-7 of every weight moves the gradient by 9.6e-6
+# (zamba2) and 2.8e-3 (xlstm, the mLSTM's normaliser near 0) of its largest value (qwen: 1.6e-6;
+# examples/lm_grad_noise_torch.py)
+MIXER_GRAD_REL = {"zamba2-2.7b": 2e-5, "xlstm-1.3b": 1e-2}
+MIXER_LOGITS_TOL = 1e-4  # the mixers' tp prefill logits, rtol = atol (xlstm measured 1.7e-5)
 MOE_SPLIT_CFG = dict(n_experts=3, top_k=2, n_shared_experts=2, capacity_factor=8.0, act_dtype="float32")
 EP_CFG = dict(n_experts=8, top_k=2, n_shared_experts=2, capacity_factor=8.0)
 LAUNCH_ARGV = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--steps", "2",
@@ -228,10 +255,33 @@ def _attn_modes_inputs() -> dict:
     return {"cases": cases}
 
 
-def _decode_prompts() -> np.ndarray:
-    cfg = configs.get_reduced("qwen1.5-0.5b")
+def _decode_prompts(arch: str = "qwen1.5-0.5b") -> np.ndarray:
+    cfg = configs.get_reduced(arch)
     return np.random.default_rng(3).integers(0, cfg.vocab, (TP_DECODE["batch"], TP_DECODE["n_prompt"])).astype(
         np.int32)
+
+
+def _mixer_cfg(case: str):
+    arch, _, kw = MIXER_LAYOUTS[case]
+    return dataclasses.replace(configs.get_reduced(arch), act_dtype="float32", **kw)
+
+
+def _mixer_layout_inputs() -> dict:
+    rng = np.random.default_rng(5)
+
+    def draw(d):  # a constant leaf (a norm's scale, A_log, D, a bias) near its constant
+        if d.init in ("zeros", "ones"):
+            return (float(d.init == "ones") + 0.1 * rng.normal(size=d.shape)).astype(np.float32)
+        return (rng.normal(size=d.shape) / np.sqrt(base.fan_in_of(d))).astype(np.float32)
+
+    cases = {}
+    for name, (arch, kind, kw) in MIXER_LAYOUTS.items():
+        cfg = _mixer_cfg(name)
+        cases[name] = dict(arch=arch, kind=kind, cfg=dict(kw, act_dtype="float32"),
+                           params=base.tree_map(draw, ranks._mixer_blocks(kind)[0](cfg)),
+                           x=rng.normal(size=(2, 32, cfg.d_model)).astype(np.float32),
+                           cot=rng.normal(size=(2, 32, cfg.d_model)).astype(np.float32))
+    return {"cases": cases}
 
 
 @pytest.fixture(scope="module")
@@ -243,6 +293,9 @@ def world(tmp_path_factory):
              "grads": GRADS, "tp_split": TP_SPLIT, "moe_split": _ep_inputs(MOE_SPLIT_CFG),
              "attn_modes": _attn_modes_inputs(), "vocab_ce": {"cases": _vocab_cases()},
              "tp_decode": dict(TP_DECODE, prompts=_decode_prompts()),
+             "tp_decode_mixers": dict(TP_DECODE, prompts={a: _decode_prompts(a) for a in TP_DECODE_MIXERS},
+                                      archs=TP_DECODE_MIXERS),
+             "mixer_layouts": _mixer_layout_inputs(),
              "ep": _ep_inputs(), "batch": {}, "shard_act": {}, "guard": {},
              "launcher": dict(argv=LAUNCH_ARGV, tmp=str(tmp))}
     ctx = mp.get_context("spawn")
@@ -507,38 +560,26 @@ def test_tp_split_step_matches_whole_layer_step(world, arch):
               f"worst leaves {[(k, round(res['rel'][k], 10)) for k in worst]}; collectives "
               f"{res['collectives']}; gathered projections {res['gathered']}")
         assert res["total"][0] == pytest.approx(res["total"][1], rel=TP_REL)
-        assert res["rel_all"] <= TP_GRAD_REL
+        assert res["rel_all"] <= MIXER_GRAD_REL.get(arch, TP_GRAD_REL)
         assert res["collectives"] == budget
     assert world[0]["tp_split"]["granite-34b"]["gathered"] == ("wk", "wv")
     assert world[0]["tp_split"]["qwen1.5-0.5b"]["gathered"] == ()
 
 
-@pytest.mark.parametrize("arch", TP_SPLIT["mixers"])
-def test_tp_split_keeps_mixers_whole(world, arch):
-    """zamba2 (its shared attention + MLP block split, the Mamba2 layers
-    gathered whole along "model") and xlstm (its mLSTM and sLSTM layers
-    gathered whole, the vocabulary split) under the split "tp" step
-    against the whole-leaf step: the loss within TP_REL, each rank's
-    gradient shards within TP_GRAD_REL (xlstm: XLSTM_GRAD_REL, module
-    docstring), the mixers' leaves gathered along "model" as well as
-    "data"."""
-    for r in range(ranks.WORLD):
-        res = world[r]["tp_split"][arch]
-        worst = sorted(res["rel"], key=res["rel"].get)[-3:]
-        print(f"{arch} rank {r}: total {res['total'][0]!r} vs {res['total'][1]!r}; gradient rel {res['rel_all']:.3e}; "
-              f"worst leaves {[(k, round(res['rel'][k], 10)) for k in worst]}; collectives {res['collectives']}")
-        assert res["total"][0] == pytest.approx(res["total"][1], rel=TP_REL)
-        assert res["rel_all"] <= (XLSTM_GRAD_REL if arch == "xlstm-1.3b" else TP_GRAD_REL)
-        # per mixer layer one gather along "model" and one along "data", again in remat's recompute
-        assert res["collectives"]["all_gather"] > 2 * configs.get_reduced(arch).n_layers
-
-
 def _unsplit_flops(cfg, rows: int, seq: int) -> float:
-    """The FLOPs of one mesh gradient that the split leaves whole on a rank:
-    per MoE layer the router's product and the routed experts' (each rank
-    its n_experts / 2 under expert parallelism, split and whole step
-    alike), in the forward, remat full's recompute and the backward (two
-    products per forward one)."""
+    """The FLOPs of one mesh gradient that the split leaves whole on a rank,
+    in the forward, remat full's recompute and the backward (two products
+    per forward one): per MoE layer the router's product and the routed
+    experts' (each rank its n_experts / 2 under expert parallelism, split
+    and whole step alike); per mLSTM layer the gates' ``x @ w_if`` (a (d,
+    2H) leaf the rules replicate). Mamba2's B and C (every head's) come out
+    of the split ``in_proj`` and are not multiplied again outside its
+    heads' SSD; reduced xlstm's sLSTM heads divide "model", so no whole
+    sLSTM recurrence is left."""
+    fwd = 2 if cfg.remat == "full" else 1
+    if cfg.family == "ssm":
+        n_mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+        return float(n_mlstm * (fwd + 2) * 2 * rows * seq * cfg.d_model * 2 * cfg.n_heads)
     if cfg.family != "moe":
         return 0.0
     gs = min(2048, seq)
@@ -547,7 +588,6 @@ def _unsplit_flops(cfg, rows: int, seq: int) -> float:
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     routed = 3 * 2 * (E // 2) * (rows * C) * d * f * n_groups
     router = 2 * rows * seq * d * E
-    fwd = 2 if cfg.remat == "full" else 1
     n_moe = cfg.n_layers - (1 if cfg.first_layer_dense else 0)
     return float(n_moe * (fwd + 2) * (routed + router))
 
@@ -668,10 +708,12 @@ def test_vocab_parallel_cross_entropy_matches_reference(world, case):
         assert int(n) > 0 and (labels[:, 1:] >= 32).any() and ((labels[:, 1:] >= 0) & (labels[:, 1:] < 32)).any()
 
 
-def test_tp_greedy_decode_matches_single_process(world):
-    cfg = dataclasses.replace(configs.get_reduced("qwen1.5-0.5b"), act_dtype="float32")
+def _single_decode(arch: str) -> tuple:
+    """The single process's greedy ids and prefill's last-position logits
+    for reduced ``arch`` at act fp32 on ``_decode_prompts``."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), act_dtype="float32")
     model = train_lib.build_model(cfg, seed=TP_DECODE["seed"], device="cpu")
-    prompts = torch.as_tensor(_decode_prompts())
+    prompts = torch.as_tensor(_decode_prompts(arch))
     n_prompt, n_gen = TP_DECODE["n_prompt"], TP_DECODE["n_gen"]
     step = ts.make_serve_step(cfg)
     with torch.no_grad():
@@ -683,7 +725,12 @@ def test_tp_greedy_decode_matches_single_process(world):
         for i in range(n_gen - 1):
             nxt, _, state = step(model, nxt, state, n_prompt + i)
             ids.append(nxt)
-    want = torch.cat(ids, 1).numpy()
+    return cfg, torch.cat(ids, 1).numpy(), last
+
+
+def test_tp_greedy_decode_matches_single_process(world):
+    cfg, want, last = _single_decode("qwen1.5-0.5b")
+    n_prompt, n_gen = TP_DECODE["n_prompt"], TP_DECODE["n_gen"]
     for r in range(ranks.WORLD):
         res = world[r]["tp_decode"]
         lo, hi = res["rows"]
@@ -692,6 +739,108 @@ def test_tp_greedy_decode_matches_single_process(world):
         assert np.array_equal(res["ids"], want[lo:hi])
         assert res["cache_shapes"] == [(cfg.n_layers, hi - lo, n_prompt + n_gen, cfg.n_kv_heads // 2, cfg.hd)] * 2
         np.testing.assert_allclose(res["prefill_last"], last[lo:hi], rtol=1e-5, atol=1e-5)
+
+
+def _state_share(cfg, rows: int, max_len: int) -> list:
+    """The shapes of a rank's decode state on 2 "model" ranks (its half of
+    the heads of every cache and recurrent state), in ``tree_leaves``
+    order: hybrid "kv" k, v, "mamba" conv, ssd; ssm "mlstm", "slstm" c, h."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    if cfg.family == "hybrid":
+        g, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        H, P, N = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+        return [(g, rows, max_len, cfg.n_kv_heads // 2, cfg.hd)] * 2 + [
+            (g, per, rows, cfg.conv_width - 1, H // 2 * P + 2 * N), (g, per, rows, H // 2, N, P)]
+    g, per_m, H = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1, cfg.n_heads
+    dh = d_in // H
+    return [(g, per_m, rows, H // 2, dh, dh + 1)] + [(g, rows, H // 2, dh)] * 2
+
+
+@pytest.mark.parametrize("arch", TP_DECODE_MIXERS)
+def test_tp_greedy_decode_of_mixers_matches_single_process(world, arch):
+    """Greedy decoding of reduced zamba2 and xlstm under "tp" on the (2, 2)
+    mesh, each rank holding its share of every recurrent state (its Mamba2
+    heads' conv channels plus B and C and their SSD states, its mLSTM and
+    sLSTM heads): the ids equal the single process's, the state's shapes
+    are the rank's share, and the prefill's last-position logits the
+    single process's within rtol = atol = MIXER_LOGITS_TOL."""
+    cfg, want, last = _single_decode(arch)
+    n_prompt, n_gen = TP_DECODE["n_prompt"], TP_DECODE["n_gen"]
+    for r in range(ranks.WORLD):
+        res = world[r]["tp_decode_mixers"][arch]
+        lo, hi = res["rows"]
+        gap = float(np.abs(res["prefill_last"] - last[lo:hi]).max())
+        print(f"{arch} rank {r} rows [{lo}, {hi}): ids {res['ids'].tolist()} vs {want[lo:hi].tolist()}; state "
+              f"{res['cache_shapes']}; prefill logits max |d| {gap:.3e}")
+        assert np.array_equal(res["ids"], want[lo:hi])
+        assert res["cache_shapes"] == _state_share(cfg, hi - lo, n_prompt + n_gen)
+        np.testing.assert_allclose(res["prefill_last"], last[lo:hi], rtol=MIXER_LOGITS_TOL, atol=MIXER_LOGITS_TOL)
+
+
+@pytest.mark.parametrize("case", list(MIXER_LAYOUTS))
+def test_mixer_layouts_under_split_match_whole_block(world, case):
+    """A mixer block on 2 "model" ranks with its leaves held as the rules
+    place them (the rank's block where "model" divides the dim, else
+    whole): reduced zamba2's Mamba2 (4 heads a rank) and xlstm's mLSTM (2
+    heads a rank: q, k and v reduce-scattered to them) and sLSTM (2 heads
+    a rank); then heads that "model" does not divide: Mamba2 with 3 heads (the
+    rank's d_in columns straddle head 1, computed on both ranks; in_proj
+    replicated, projected whole), the mLSTM with 1 head (each rank a half
+    of its value columns: q and k all-reduced, v reduce-scattered) and
+    with 3 (straddled), the sLSTM with 1 head (pre-activations gathered
+    whole, the recurrence whole on both ranks). Against the whole block:
+    the output and 4 decode steps from the rank's share of the state
+    within MIXER_REL (the mLSTM: XLSTM_GRAD_REL: its normaliser amplifies
+    rounding, measured 3.6e-5) of the largest value; x's
+    gradient and each leaf's (the ranks' blocks side by side, a whole
+    leaf's on every rank) the same; the state's shapes the rank's share."""
+    arch, kind, _ = MIXER_LAYOUTS[case]
+    spec = _mixer_layout_inputs()["cases"][case]
+    cfg = _mixer_cfg(case)
+    _, block, init = ranks._mixer_blocks(kind)
+    params = base.tree_map(lambda a: torch.tensor(a, requires_grad=True), spec["params"])
+    x = torch.tensor(spec["x"], requires_grad=True)
+    y, _ = block(params, x, cfg)
+    (y * torch.as_tensor(spec["cot"])).sum().backward()
+    state = init(cfg, x.shape[0], device="cpu")
+    with torch.no_grad():
+        dec = []
+        for i in range(4):
+            yi, state = block(params, x[:, i : i + 1].detach(), cfg, state=state)
+            dec.append(yi)
+    dec = _np(torch.cat(dec, 1))
+    want = {"/".join(p): _np(t.grad) for p, t in transformer._paths(params)}
+    bar = XLSTM_GRAD_REL if kind == "mlstm" else MIXER_REL
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    by_m: dict = {}
+    for r in range(ranks.WORLD):
+        res = world[r]["mixer_layouts"][case]
+        gaps = {"y": rel(res["y"], _np(y)), "decode": rel(res["decode"], dec), "x_grad": rel(res["x_grad"], _np(x.grad))}
+        print(f"{case} rank {r}: {gaps}; state {res['state']}; split dims {res['split_dim']}")
+        assert max(gaps.values()) <= bar, gaps
+        by_m[r % 2] = res
+    for k, g in want.items():
+        dim = by_m[0]["split_dim"][k]
+        got = (by_m[0]["grads"][k] if dim is None else
+               np.concatenate([by_m[0]["grads"][k], by_m[1]["grads"][k]], axis=dim))
+        if dim is None:
+            assert rel(by_m[1]["grads"][k], g) <= bar, k
+        print(f"{case} {k}: split along {dim}, gradient rel {rel(got, g):.3e}")
+        assert rel(got, g) <= bar, k
+    d_in, H = cfg.ssm_expand * cfg.d_model, (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+                                             if kind == "mamba" else cfg.n_heads)
+    shares = {"mamba2_8_heads": [(2, 3, 4 * cfg.ssm_head_dim + 2 * cfg.ssm_state),
+                                 (2, 4, cfg.ssm_state, cfg.ssm_head_dim)],
+              "mlstm_4_heads": [(2, 2, d_in // H, d_in // H + 1)],
+              "slstm_4_heads": [(2, 2, d_in // H)] * 2,
+              "mamba2_3_heads": [(2, 3, 2 * cfg.ssm_head_dim + 2 * cfg.ssm_state), (2, 2, cfg.ssm_state, 32)],
+              "mlstm_1_head": [(2, 1, d_in, d_in // 2 + 1)],
+              "slstm_1_head": [(2, 1, d_in)] * 2,
+              "mlstm_3_heads": [(2, 2, d_in // H, d_in // H + 1)]}
+    assert all(world[r]["mixer_layouts"][case]["state"] == shares[case] for r in range(ranks.WORLD))
 
 
 class _Fake:
